@@ -1,0 +1,36 @@
+"""ploidyfrost_tpu_torch — the PyTorch/CUDA port of the JAX package
+(ploidyfrost_tpu/).
+
+The single-sample pipeline (reads -> k-mer counting -> cutoffs ->
+compacted de Bruijn graph -> superbubbles -> branch alignment -> sites
+-> GMM-EM ploidy call) on an NVIDIA GPU. Canonical k-mer extraction is
+a hand-written CUDA kernel (csrc/extract_canonical.cu); the counter's
+sort-collapse, the superbubble search and the EM loop are torch ops on
+the chosen device; graph construction, alignment and table output are
+host code (numpy and native C++).
+
+This package never imports jax or the JAX package. Entry points take a
+``device`` argument (default ``"cuda"``) and raise when CUDA is asked
+for and absent: nothing silently runs on the CPU. Pass ``device="cpu"``
+to run the plain torch versions on the host (the tests do).
+"""
+
+from __future__ import annotations
+
+import torch
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """torch.device for ``device``; raises RuntimeError when a CUDA
+    device is asked for and none is available."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but CUDA is not available; "
+            "pass device='cpu' to run on the host"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {str(dev)!r}")
+    return dev

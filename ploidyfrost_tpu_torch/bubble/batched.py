@@ -1,0 +1,568 @@
+# Ported from ploidyfrost_tpu/bubble/batched.py: search_seeds and
+# _search_batched as a batched torch loop; _replay_fast and
+# find_superbubbles_device copied.
+"""Device-batched superbubble search (engine for src/CDBG.cpp:1707-2823).
+
+The reference parallelizes superbubble extraction with N pthreads pulling
+unitigs off a shared iterator (findSuperBubble_multithread_ptr,
+src/CDBG.cpp:1707-1871) and serializes registration under a global mutex
+(setNoBubble_multithread_ptr, src/CDBG.cpp:847-1100). The batched
+replacement exploits a structural fact of the algorithm:
+
+    extractSuperBubble's DFS (src/CDBG.cpp:2643-2823) reads ONLY the
+    graph adjacency — never the shared MyUnitig state. State is touched
+    exclusively at registration time.
+
+So the search phase is embarrassingly parallel over seeds: every
+(unitig, strand) with out-degree > 1 runs its bounded DFS at once, as
+one torch loop over [S, MAX_SEEN] / [S, MAX_STACK] state tensors on the
+device. The host then *replays* the recorded outcomes in canonical seed
+order (unitig id asc, plus before minus — the reference's deterministic
+single-thread order, src/CDBG.cpp:178-252), skipping seeds whose
+entrance pointer was already claimed by an earlier registration. This
+is exactly equivalent to the sequential algorithm, because a seed's
+search result cannot depend on earlier registrations — only its
+*admission* can.
+
+Seeds whose region exceeds the fixed caps (seen-set > MAX_SEEN, stack >
+MAX_STACK, or step budget) are flagged and fall back to the exact host
+search (bubble/superbubble.py).
+
+Per-seed state (MAX_SEEN slots):
+    seen  packed (idx<<1 | strand) handle at FIRST sighting — the
+          vec_km_seen entry (src/CDBG.cpp:2680, 2717)
+    st    0 = not in state_map, 2 = seen, 1 = visited
+    sm    strand_map value (updated on pop and on first sighting,
+          src/CDBG.cpp:2698-2699, 2719)
+    cyc   member of cycle_set (src/CDBG.cpp:2704-2712, 2722-2736)
+    stack explicit vertices_visit stack (may hold duplicates, matching
+          the reference's std::stack behavior)
+
+The JAX search is a vmapped `lax.while_loop`, in which each seed stops
+on its own condition. Here one loop runs all seeds, so every state
+update of a step is applied only to the lanes still `active` (stack not
+empty, not closed, not overflowed); finished lanes stay frozen.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..graph.cdbg import CDBGraph, UnitigHandle
+from .superbubble import (
+    NULL,
+    BubbleState,
+    extract_superbubble,
+    list_bubbles,
+)
+
+MAX_SEEN = 32
+MAX_STACK = 48
+MAX_STEPS = 4 * MAX_STACK
+MAX_CHUNK = 1 << 17  # seeds per search call (bounds the [S, 4, MS] temporaries)
+# steps between early-exit checks (each check is one host sync)
+EXIT_CHECK_EVERY = 8
+
+# outcome codes recorded per seed
+STAT_NONE = 0  # stack drained, no cycle: no state change at all
+STAT_STALL_CYCLE = 1  # stack drained with flag_cycle: cycle-set cleanup
+STAT_CYCLE_EXIT = 2  # closed but exit loops back to seed: setNoBubble cycle
+STAT_ABORT = 3  # closed with tip/cycle flag: setNoBubble all
+STAT_BUBBLE = 4  # closed clean: real bubble registration
+STAT_OVERFLOW = 5  # caps exceeded: host fallback
+
+
+def _search_batched(seed, succ_node, ms=MAX_SEEN, mstk=MAX_STACK, max_steps=MAX_STEPS):
+    """Bounded-DFS superbubble search for every seed at once.
+
+    seed: [S] int64 packed seeds; succ_node: [n, 2, 4] int64 packed
+    successors (-1 = none), both on the same device. Returns
+    (status, psec, nseen, seen [S, ms], cyc_mask) int64 tensors. The
+    body is the JAX `search_one` body line for line, on a leading seed
+    axis, with one-hot masks instead of scatters.
+    """
+    if ms > 32:
+        # the cycle-set travels as a uint32 bitmask
+        raise ValueError(f"MAX_SEEN caps at 32 (uint32 cyc mask), got {ms}")
+    dev = seed.device
+    S = seed.shape[0]
+    i64 = torch.int64
+    iota = torch.arange(ms, dtype=i64, device=dev)[None, :]
+    istk = torch.arange(mstk, dtype=i64, device=dev)[None, :]
+    seed_c = seed[:, None]
+    seen = torch.where(iota == 0, seed_c, -1)
+    st = torch.zeros((S, ms), dtype=i64, device=dev)
+    sm = torch.zeros((S, ms), dtype=i64, device=dev)
+    cyc = torch.zeros((S, ms), dtype=torch.bool, device=dev)
+    stack = torch.where(istk == 0, seed_c, 0)
+    sp = torch.ones(S, dtype=i64, device=dev)
+    nseen = torch.ones(S, dtype=i64, device=dev)
+    fcyc = torch.zeros(S, dtype=torch.bool, device=dev)
+    ftip = torch.zeros(S, dtype=torch.bool, device=dev)
+    ovf = torch.zeros(S, dtype=torch.bool, device=dev)
+    done = torch.zeros(S, dtype=torch.bool, device=dev)
+    status = torch.full((S,), STAT_NONE, dtype=i64, device=dev)
+    psec = torch.full((S,), -1, dtype=i64, device=dev)
+
+    for step in range(max_steps):
+        act = (sp > 0) & ~done & ~ovf  # the while_loop cond, per lane
+        if step % EXIT_CHECK_EVERY == 0 and not bool(act.any()):
+            break
+        a1 = act[:, None]
+        # -- pop v, mark visited, refresh strand_map (CDBG.cpp:2697-2699)
+        sp_n = sp - 1
+        v = torch.where(istk == sp_n[:, None], stack, 0).sum(1)
+        vidx = v >> 1
+        hit_v = (seen >> 1) == vidx[:, None]
+        st_n = torch.where(hit_v, 1, st)
+        sm_n = torch.where(hit_v, (v & 1)[:, None], sm)
+        succs = succ_node[vidx, v & 1]  # [S, 4]
+        ftip_n = ftip | (succs < 0).all(1)  # tip (CDBG.cpp:2701-2703)
+        seen_n, cyc_n, stack_n = seen, cyc, stack
+        nseen_n, fcyc_n, ovf_n = nseen, fcyc, ovf
+        for b in range(4):
+            u = succs[:, b]
+            valid = u >= 0
+            hv = (seen_n >> 1) == vidx[:, None]  # v's slot
+            # successor is the seed itself: cycle (CDBG.cpp:2705-2712)
+            hit_seed = valid & (u == seed)
+            fcyc_n = fcyc_n | hit_seed
+            cyc_n = cyc_n | (hit_seed[:, None] & ((iota == 0) | hv))
+            go = valid & ~hit_seed
+            uidx = u >> 1
+            ustr = u & 1
+            hit_u = (seen_n >> 1) == uidx[:, None]
+            found = hit_u.any(1)
+            visited = (hit_u & (st_n == 1)).any(1)
+            # already-visited successor: cycle (CDBG.cpp:2730-2736)
+            dv = go & visited
+            fcyc_n = fcyc_n | dv
+            cyc_n = cyc_n | (dv[:, None] & (hit_u | hv))
+            # not-yet-visited successor (CDBG.cpp:2714-2729)
+            doc = go & ~visited
+            app = doc & ~found
+            ovf_n = ovf_n | (app & (nseen_n >= ms))
+            wmask = app[:, None] & (iota == nseen_n.clamp(max=ms - 1)[:, None])
+            # strand mismatch check BEFORE any overwrite (found case)
+            sm_u = torch.where(hit_u, sm_n, 0).sum(1)
+            mism = doc & found & (sm_u != ustr)
+            fcyc_n = fcyc_n | mism
+            cyc_n = cyc_n | (mism[:, None] & (hit_u | hv))
+            seen_n = torch.where(wmask, u[:, None], seen_n)
+            sm_n = torch.where(wmask, ustr[:, None], sm_n)
+            hit_u2 = hit_u | wmask  # u's slot after a potential append
+            nseen_n = nseen_n + app.to(i64)
+            st_n = torch.where(doc[:, None] & hit_u2, 2, st_n)
+            # all-predecessors-visited gate (CDBG.cpp:2740-2759),
+            # all 4 candidate predecessors probed at once
+            preds_w = succ_node[uidx, 1 - ustr]  # [S, 4] twin-successors
+            pact = doc[:, None] & (preds_w >= 0)
+            pred = preds_w ^ 1  # twin -> predecessor handle
+            hits_p = (seen_n[:, None, :] >> 1) == (pred[:, :, None] >> 1)
+            pfound = hits_p.any(2)
+            st_p = torch.where(hits_p, st_n[:, None, :], 0).sum(2)
+            sm_p = torch.where(hits_p, sm_n[:, None, :], 0).sum(2)
+            pin = pfound & (st_p != 0)  # "in state_map"
+            allv = doc & (~pact | (pin & (st_p == 1))).all(1)
+            pmism = pact & pin & (sm_p != (pred & 1))
+            any_pm = pmism.any(1)
+            fcyc_n = fcyc_n | any_pm
+            cyc_n = (
+                cyc_n
+                | (any_pm[:, None] & hit_u2)
+                | (pmism[:, :, None] & hits_p).any(1)
+            )
+            push = doc & allv
+            ovf_n = ovf_n | (push & (sp_n >= mstk))
+            stkmask = push[:, None] & (istk == sp_n.clamp(max=mstk - 1)[:, None])
+            stack_n = torch.where(stkmask, u[:, None], stack_n)
+            sp_n = sp_n + push.to(i64)
+
+        # -- closing check (CDBG.cpp:2763-2778)
+        top = stack_n[:, 0]
+        others = (st_n == 2) & (seen_n != top[:, None]) & (iota < nseen_n[:, None])
+        close = (sp_n == 1) & ~others.any(1) & ~ovf_n
+        exit_succs = succ_node[top >> 1, top & 1]
+        cyc_exit = (exit_succs == seed_c).any(1)
+        stat = torch.where(
+            cyc_exit,
+            STAT_CYCLE_EXIT,
+            torch.where(fcyc_n | ftip_n, STAT_ABORT, STAT_BUBBLE),
+        )
+        # commit the step on active lanes only: finished lanes stay frozen
+        seen = torch.where(a1, seen_n, seen)
+        st = torch.where(a1, st_n, st)
+        sm = torch.where(a1, sm_n, sm)
+        cyc = torch.where(a1, cyc_n, cyc)
+        stack = torch.where(a1, stack_n, stack)
+        sp = torch.where(act, sp_n, sp)
+        nseen = torch.where(act, nseen_n, nseen)
+        fcyc = torch.where(act, fcyc_n, fcyc)
+        ftip = torch.where(act, ftip_n, ftip)
+        ovf = torch.where(act, ovf_n, ovf)
+        closed = act & close
+        status = torch.where(closed, stat, status)
+        psec = torch.where(closed, top, psec)
+        done = done | closed
+
+    # stack drained without closing: STAT_NONE / STAT_STALL_CYCLE
+    # (CDBG.cpp:2813-2822); caps exceeded: host fallback
+    ovf = ovf | (~done & (sp > 0))
+    status = torch.where(
+        ovf,
+        STAT_OVERFLOW,
+        torch.where(done, status, torch.where(fcyc, STAT_STALL_CYCLE, STAT_NONE)),
+    )
+    cyc_mask = torch.where(cyc, 1 << iota, 0).sum(1)
+    return status, psec, nseen, seen, cyc_mask
+
+
+def search_seeds(g: CDBGraph, seeds: np.ndarray, device="cuda"):
+    """Run the batched search for every packed seed. Returns host numpy
+    (status u8, psec i32, nseen u8, seen[<=MS] i32, cyc-bitmask u32)
+    arrays in seed order; `seen` is column-trimmed to the batch's max
+    live slot count."""
+    dev = resolve_device(device)
+    succ_node = torch.from_numpy(np.ascontiguousarray(g._succ, dtype=np.int64)).to(dev)
+    seeds_t = torch.from_numpy(np.asarray(seeds, dtype=np.int64)).to(dev)
+    outs = [
+        _search_batched(seeds_t[off : off + MAX_CHUNK], succ_node)
+        for off in range(0, len(seeds), MAX_CHUNK)
+    ]
+    status, psec, nseen, seen, cyc = (torch.cat(x) for x in zip(*outs))
+    mx = max(1, int(nseen.max()))
+    return [
+        status.to(torch.uint8).cpu().numpy(),
+        psec.to(torch.int32).cpu().numpy(),
+        nseen.to(torch.uint8).cpu().numpy(),
+        seen[:, :mx].to(torch.int32).cpu().numpy(),
+        cyc.cpu().numpy().astype(np.uint32),
+    ]
+
+
+def _replay_fast(
+    g: CDBGraph,
+    state: BubbleState,
+    seed_list,
+    status,
+    psec,
+    nseen,
+    seen,
+    cyc,
+    complex_size: int,
+    colors=None,
+):
+    """Replay of the recorded search outcomes, in flat-int form:
+    identical state transitions to the UnitigHandle-based loop
+    (see _register_bubble / _set_no_bubble_* in superbubble.py, which
+    mirror src/CDBG.cpp:552-846) but ~100x faster — plain Python ints
+    over list-backed state, no handle objects, no method dispatch.
+    tests/test_batched.py cross-validates both paths on random graphs.
+
+    With `colors`, the colored registration gates
+    (src/CCDBG.cpp:1450-1812 via superbubble._register_bubble) run on
+    three precomputed arrays (ColorMatrix.gate_arrays) — per-unitig
+    color-pair counts, full-unitig membership masks, and k-mer counts —
+    instead of per-bubble ColorMatrix row slicing."""
+    n = len(state.flags)
+    if colors is not None:
+        csizes, ccontains, cnkm = colors.gate_arrays()
+        csizes_l = csizes.tolist()
+        cnkm_l = cnkm.tolist()
+        C = colors.n_colors
+    flags = state.flags.tolist()
+    plus = state.plus.tolist()
+    minus = state.minus.tolist()
+    # flat lists (index arithmetic) — building [n][2][4] nested lists
+    # costs more than the whole replay loop at 100k+ unitigs
+    succ = np.asarray(g._succ).reshape(-1).tolist()  # [n*8] (idx*2+strand)
+    out_deg = np.asarray(g._out_deg).reshape(-1).tolist()  # [n*2]
+    seeds_l = seed_list.tolist()
+    status_l = status.tolist()
+    psec_l = psec.tolist()
+    nseen_l = nseen.tolist()
+    seen_l = seen.tolist()
+    cyc_l = cyc.tolist()
+    NULLV = NULL
+
+    def set_plus_self(x):
+        plus[x] = x
+        flags[x] &= 0xFE
+
+    def set_minus_self(x):
+        minus[x] = x
+        flags[x] &= 0xFD
+
+    def detach_and_self(x):
+        ex = plus[x]
+        if ex != NULLV and ex != x:
+            if plus[ex] == x:
+                set_plus_self(ex)
+            else:
+                set_minus_self(ex)
+        set_plus_self(x)
+        ex = minus[x]
+        if ex != NULLV and ex != x:
+            if plus[ex] == x:
+                set_plus_self(ex)
+            else:
+                set_minus_self(ex)
+        set_minus_self(x)
+
+    def detach_endpoint(x, use_plus):
+        # the endpoint detach block of _set_no_bubble_all
+        # (src/CDBG.cpp:603-650): no ex != x guard, matching the ref
+        ex = plus[x] if use_plus else minus[x]
+        if ex != NULLV:
+            if plus[ex] == x:
+                set_plus_self(ex)
+            else:
+                set_minus_self(ex)
+        if use_plus:
+            set_plus_self(x)
+        else:
+            set_minus_self(x)
+
+    for si in range(len(seeds_l)):
+        sp = seeds_l[si]
+        i = sp >> 1
+        strand = sp & 1
+        if (plus[i] if strand else minus[i]) != NULLV:
+            continue  # claimed by an earlier registration
+        stt = status_l[si]
+        if stt == STAT_NONE:
+            continue
+        if stt == STAT_OVERFLOW:
+            # host fallback: run the exact search on a VIEW over the
+            # replay's own flat lists — BubbleState's ops are all
+            # per-element, so plain lists satisfy the same API and the
+            # former per-seed whole-array sync (O(n) both ways PER
+            # overflow seed: quadratic at 1M+ unitigs, the round-4
+            # 50 Mbp wall) disappears
+            lview = BubbleState.__new__(BubbleState)
+            lview.flags = flags
+            lview.plus = plus
+            lview.minus = minus
+            extract_superbubble(
+                g, lview, UnitigHandle(g, i, bool(strand)), complex_size,
+                colors,
+            )
+            continue
+        ns = nseen_l[si]
+        row = seen_l[si]
+        if stt == STAT_STALL_CYCLE:
+            cmask = cyc_l[si]
+            for slot in range(ns):
+                if (cmask >> slot) & 1:
+                    x = row[slot] >> 1
+                    detach_and_self(x)
+                    flags[x] |= 0x04
+            if strand:
+                set_plus_self(i)
+            else:
+                set_minus_self(i)
+            continue
+        pj = psec_l[si]
+        j = pj >> 1
+        jstrand = pj & 1
+        if stt == STAT_CYCLE_EXIT:
+            # _set_no_bubble_cycle (src/CDBG.cpp:552-602)
+            for slot in range(ns):
+                x = row[slot] >> 1
+                detach_and_self(x)
+                flags[x] |= 0x04
+            if strand:
+                set_plus_self(i)
+            else:
+                set_minus_self(i)
+            if not jstrand:
+                set_plus_self(j)
+            else:
+                set_minus_self(j)
+        elif stt == STAT_ABORT:
+            # _set_no_bubble_all (src/CDBG.cpp:603-699)
+            detach_endpoint(i, bool(strand))
+            detach_endpoint(j, not jstrand)
+            for slot in range(ns):
+                p = row[slot]
+                if p == sp or p == pj:
+                    continue
+                x = p >> 1
+                detach_and_self(x)
+                flags[x] |= 0x04
+        else:  # STAT_BUBBLE: _register_bubble (src/CDBG.cpp:700-846)
+            if ns < 4:
+                continue
+            if (flags[j] | flags[i]) & 0x04:
+                for slot in range(ns):
+                    p = row[slot]
+                    if p == sp:
+                        if strand:
+                            set_plus_self(i)
+                        else:
+                            set_minus_self(i)
+                        continue
+                    if p == pj:
+                        # inverted strand handling vs the cycle variant
+                        if jstrand:
+                            set_minus_self(j)
+                        else:
+                            set_plus_self(j)
+                        continue
+                    x = p >> 1
+                    detach_and_self(x)
+                    flags[x] |= 0x04
+                continue
+            if ns <= 6:
+                strict = True
+                for slot in range(ns):
+                    p = row[slot]
+                    if p == sp or p == pj:
+                        continue
+                    x = p >> 1
+                    xs = p & 1
+                    # exactly one predecessor == entrance unitig and one
+                    # successor == exit unitig (src/CDBG.cpp:1019-1041);
+                    # in-degree(x, s) == out-degree(x, !s), pred idx =
+                    # the single twin-successor's idx
+                    if (
+                        out_deg[x * 2 + 1 - xs] != 1
+                        or out_deg[x * 2 + xs] != 1
+                    ):
+                        strict = False
+                        break
+                    base = x * 8 + (1 - xs) * 4
+                    pk = succ[base]
+                    if pk < 0:
+                        pk = succ[base + 1]
+                        if pk < 0:
+                            pk = succ[base + 2]
+                            if pk < 0:
+                                pk = succ[base + 3]
+                    if pk >> 1 != i:
+                        strict = False
+                        break
+                    base = x * 8 + xs * 4
+                    sk = succ[base]
+                    if sk < 0:
+                        sk = succ[base + 1]
+                        if sk < 0:
+                            sk = succ[base + 2]
+                            if sk < 0:
+                                sk = succ[base + 3]
+                    if sk >> 1 != j:
+                        strict = False
+                        break
+                if strict:
+                    flags[i] |= 0x10 if strand else 0x08
+                    flags[j] |= 0x08 if jstrand else 0x10
+            if ns > complex_size:
+                flags[i] |= 0x40 if strand else 0x20
+                flags[j] |= 0x20 if jstrand else 0x40
+            for slot in range(ns):
+                p = row[slot]
+                if p == sp or p == pj:
+                    continue
+                x = p >> 1
+                detach_and_self(x)
+                flags[x] |= 0x04
+            if colors is not None:
+                # colored registration gates (the flat form of
+                # superbubble._register_bubble's colors block, matching
+                # src/CCDBG.cpp uniform-color + successor-coverage rules)
+                def endpoints_self():
+                    if strand:
+                        set_plus_self(i)
+                    else:
+                        set_minus_self(i)
+                    if not jstrand:
+                        set_plus_self(j)
+                    else:
+                        set_minus_self(j)
+
+                f = True
+                if csizes_l[i] != cnkm_l[i] * C:
+                    f = False
+                    flags[i] |= 0x04
+                    endpoints_self()
+                if colors.size_as_flat(j, cnkm_l[i]) != cnkm_l[j] * C:
+                    f = False
+                    flags[j] |= 0x04
+                    endpoints_self()
+                if f:
+                    all_mask = np.ones(C, dtype=bool)
+                    required = {i: all_mask, j: all_mask}
+                    for slot in range(ns):
+                        p = row[slot]
+                        if p == pj:
+                            continue
+                        x = p >> 1
+                        xs = p & 1
+                        req = required.get(x)
+                        if req is None:
+                            req = ccontains[x]
+                            required[x] = req
+                        suc_any = np.zeros(C, dtype=bool)
+                        base = x * 8 + xs * 4
+                        for b in range(4):
+                            sk = succ[base + b]
+                            if sk >= 0:
+                                suc_any |= ccontains[sk >> 1]
+                        if (req & ~suc_any).any():
+                            f = False
+                            break
+                    if not f:
+                        endpoints_self()
+                if not f:
+                    continue
+            if strand:
+                plus[i] = j
+                flags[i] |= 0x01
+            else:
+                minus[i] = j
+                flags[i] |= 0x02
+            if jstrand:
+                minus[j] = i
+                flags[j] |= 0x02
+            else:
+                plus[j] = i
+                flags[j] |= 0x01
+
+    state.flags = np.array(flags, dtype=np.uint8)
+    state.plus = np.array(plus, dtype=np.int64)
+    state.minus = np.array(minus, dtype=np.int64)
+
+
+def find_superbubbles_device(
+    g: CDBGraph, complex_size: int = 8, colors=None, device="cuda"
+) -> tuple[BubbleState, list]:
+    """Drop-in replacement for superbubble.find_superbubbles: batched
+    search on `device` + host replay. Byte-identical outputs."""
+    n = len(g)
+    state = BubbleState(n)
+    # seeds in canonical order: unitig id asc, plus before minus
+    # (src/CDBG.cpp:178-252)
+    deg = np.asarray(g._out_deg)  # [n, 2], columns (minus, plus)
+    plus_b = deg[:, 1] > 1
+    minus_b = deg[:, 0] > 1
+    idx = np.arange(n, dtype=np.int32)
+    # interleave in (i, plus), (i, minus) order
+    order = np.lexsort((1 - np.concatenate([np.ones(plus_b.sum(), np.int8),
+                                            np.zeros(minus_b.sum(), np.int8)]),
+                        np.concatenate([idx[plus_b], idx[minus_b]])))
+    packed = np.concatenate([idx[plus_b] * 2 + 1, idx[minus_b] * 2])
+    seed_list = packed[order].astype(np.int32)
+    if len(seed_list) == 0:
+        return state, []
+
+    status, psec, nseen, seen, cyc = search_seeds(g, seed_list, device)
+
+    # flat-int replay: same transitions, no handle objects; the colored
+    # registration gates run on precomputed ColorMatrix arrays
+    _replay_fast(
+        g, state, seed_list, status, psec, nseen, seen, cyc, complex_size,
+        colors,
+    )
+    return state, list_bubbles(state, n, colors)

@@ -1,0 +1,328 @@
+# Ported from ploidyfrost_tpu/cli.py: the single-sample subcommands.
+"""Command-line interface of the PyTorch/CUDA port.
+
+Mirrors the reference binary's surface (src/Main.cpp:11-84) for the
+single-sample path:
+
+    ploidyfrost-tpu-torch [-g graph.gfa -d db.kmers.npz -o pre ...]  # main run
+    ploidyfrost-tpu-torch model    [-f covprefix | -g frefile] ...
+    ploidyfrost-tpu-torch pipeline -o pre reads.fq ...             # end-to-end
+
+Long flags (any subcommand):
+
+    --device=cuda|cpu  where the device work runs (default cuda; without
+                       a CUDA device the command fails unless --device=cpu)
+    --trim[=SPEC]      quality-trim FASTQ reads before counting
+                       (Trimmomatic-style; default SPEC =
+                       LEADING:10,TRAILING:10,SLIDINGWINDOW:3:20,MINLEN:50,
+                       the reference pipeline's arguments; applied in the
+                       native C reader)
+
+Option letters, defaults and validation follow src/Main.cpp:92-199.
+The JAX package's other subcommands (count, build, cutoffL, cutoffU,
+pipeline-multi, filter, figures, ...) and colored runs (-f on the main
+run) are not part of this package yet.
+"""
+
+from __future__ import annotations
+
+import sys
+
+def _getopt(argv, optstring):
+    """Minimal POSIX getopt clone matching the reference's parse loop."""
+    opts = []
+    args = []
+    takes_arg = {}
+    i = 0
+    while i < len(optstring):
+        c = optstring[i]
+        if i + 1 < len(optstring) and optstring[i + 1] == ":":
+            takes_arg[c] = True
+            i += 2
+        else:
+            takes_arg[c] = False
+            i += 1
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        if a.startswith("-") and len(a) > 1 and a != "--":
+            c = a[1]
+            if c not in takes_arg:
+                raise ValueError(f"Invalid option -{c}")
+            if takes_arg[c]:
+                if len(a) > 2:
+                    opts.append((c, a[2:]))
+                else:
+                    i += 1
+                    opts.append((c, argv[i]))
+            else:
+                opts.append((c, None))
+                # grouped no-arg flags: -iv
+                for extra in a[2:]:
+                    if extra not in takes_arg or takes_arg[extra]:
+                        raise ValueError(f"Invalid option -{extra}")
+                    opts.append((extra, None))
+        else:
+            args.append(a)
+        i += 1
+    return opts, args
+
+
+class Options:
+    """Defaults mirror the reference Options struct (src/Main.cpp:92-120)."""
+
+    def __init__(self):
+        self.graphfile = ""
+        self.colorfile = ""
+        self.nb_threads = 1
+        self.verbose = False
+        self.coverage_lower = 10
+        self.coverage_upper = 1000
+        self.complex_size = 8
+        self.coveragefile = ""
+        self.frequency = 0.998
+        self.outprefix = "output"
+        self.k = 25
+        self.info = False
+        self.db = ""
+        self.bubble = False
+        self.delta = 0.01
+        self.coverage_vec = []
+        self.hist = ""
+        self.p = True
+        self.mthreshold = 5.0
+        self.nthreshold = 2.0
+        self.match = 2.0
+        self.mismatch = -1.0
+        self.gap = -3.0
+        self.inputs = []
+        self.colored = False
+        self.trim = None
+        # wall seconds per pipeline stage (pipeline.run_pipeline_cli)
+        self.stage_seconds = {}
+
+
+_OPTSTRING = "M:D:G:z:a:l:q:u:e:C:R:o:t:g:f:k:d:m:n:h:ibvpNSc"
+
+
+def parse_options(argv, opt: Options, extras: str = ""):
+    """Parse reference-style options into ``opt``.
+
+    ``extras`` lists option letters that are valid for THIS subcommand
+    beyond the reference handler set — e.g. ``-c`` for our native
+    ``build``/``pipeline`` subcommands (the Bifrost CLI's colored flag,
+    bifrost/src/Bifrost.cpp). Letters declared in the reference
+    optstring but with no case handler (-e/-R/-N/-S, and -c outside
+    build) fall through to the reference's ``default:`` which prints
+    "Invalid option" + usage and exits (src/Main.cpp:124, 193-197);
+    we replicate that by raising ValueError("Invalid option ...").
+    """
+    opts, args = _getopt(argv, _OPTSTRING)
+    opt.inputs = args
+    for c, v in opts:
+        if c == "z":
+            opt.complex_size = int(v)
+        elif c == "q":
+            opt.frequency = float(v)
+        elif c == "m":
+            opt.mthreshold = float(v)
+        elif c == "n":
+            opt.nthreshold = float(v)
+        elif c == "M":
+            opt.match = float(v)
+        elif c == "D":
+            opt.mismatch = float(v)
+        elif c == "G":
+            opt.gap = float(v)
+        elif c == "u":
+            # reference fallthrough: -u also sets coveragefile
+            # (src/Main.cpp:149-153)
+            opt.coverage_upper = int(v)
+            opt.coveragefile = v
+        elif c == "C":
+            opt.coveragefile = v
+        elif c == "a":
+            opt.delta = float(v)
+        elif c == "h":
+            opt.hist = v
+        elif c == "g":
+            opt.graphfile = v
+        elif c == "f":
+            opt.colorfile = v
+        elif c == "o":
+            opt.outprefix = v
+        elif c == "l":
+            opt.coverage_lower = int(v)
+        elif c == "t":
+            opt.nb_threads = int(v)
+        elif c == "k":
+            opt.k = int(v)
+        elif c == "v":
+            opt.verbose = True
+        elif c == "d":
+            opt.db = v
+        elif c == "i":
+            opt.info = True
+        elif c == "b":
+            opt.bubble = True
+        elif c == "p":
+            opt.p = True
+        elif c == "c" and "c" in extras:
+            opt.colored = True
+        else:
+            raise ValueError(f"Invalid option -{c}")
+    return opt
+
+
+def cmd_model(argv, device="cuda") -> int:
+    from .model.gmm import run_model
+
+    # model subcommand mutates defaults before parsing (src/Main.cpp:638-642)
+    opt = Options()
+    opt.coverage_lower = 1
+    opt.coverage_upper = 9
+    opt.frequency = 0
+    opt.k = 1000
+    opt.delta = 0.01
+    parse_options(argv, opt)
+    if opt.coverage_lower > opt.coverage_upper or opt.coverage_lower < 1:
+        print("Error: gauss range invalid", file=sys.stderr)
+        return 1
+    if opt.frequency >= 0.5:
+        print("Error: frequency cutoff value should < 0.5", file=sys.stderr)
+        return 1
+    if not opt.colorfile and not opt.graphfile:
+        print("ERROR: input a frequency or coverage file")
+        return 1
+    ploidy = run_model(
+        opt.outprefix,
+        fre_file=opt.graphfile or None,
+        cov_prefix=opt.colorfile or None,
+        gauss_lower=opt.coverage_lower,
+        gauss_upper=opt.coverage_upper,
+        frequency=opt.frequency,
+        max_iter=opt.k,
+        delta=opt.delta,
+        m_threshold=opt.mthreshold,
+        n_threshold=opt.nthreshold,
+        device=device,
+    )
+    print(f"estimated ploidy level is : {int(ploidy)}")
+    return 0
+
+
+def cmd_run(argv, device="cuda") -> int:
+    from .pipeline import run_analysis
+
+    opt = parse_options(argv, Options())
+    if not opt.graphfile:
+        print("No input file given to load graph!")
+        return 1
+    if not opt.db:
+        print("Error: Need input a kmc database prefix!", file=sys.stderr)
+        return 1
+    if opt.complex_size < 4:
+        print("Error: Maximum number of unitigs in superbubble is at least 4 !", file=sys.stderr)
+        return 1
+    if opt.nb_threads > 1:
+        # pthread data parallelism (src/CDBG.cpp:1726-1777) is replaced by
+        # device batching here; the flag stays for CLI compatibility
+        print(
+            f"note: -t {opt.nb_threads} accepted for compatibility; "
+            "the analysis phase is device-batched, not host-threaded"
+        )
+    if opt.colorfile:
+        print("Error: colored runs (-f) are not supported by this package", file=sys.stderr)
+        return 1
+    if opt.hist:
+        from .kmer.cutoffs import cutoff_lower, cutoff_upper
+
+        opt.coverage_lower = max(10, cutoff_lower(opt.hist))
+        opt.coverage_upper = cutoff_upper(opt.hist, opt.frequency)
+    return run_analysis(opt, device)
+
+
+def _extract_trim(argv):
+    """Strip ``--trim[=SPEC]`` from argv; return (argv, TrimConfig|None).
+
+    SPEC is Trimmomatic-style, default = the reference pipeline's
+    arguments (script/pipeline/1.trim:16):
+    LEADING:10,TRAILING:10,SLIDINGWINDOW:3:20,MINLEN:50.
+    """
+    from .io.trim import TrimConfig
+
+    out, trim = [], None
+    for a in argv:
+        if a == "--trim":
+            trim = TrimConfig()
+        elif a.startswith("--trim="):
+            try:
+                trim = TrimConfig.parse(a[len("--trim=") :])
+            except ValueError as e:
+                # friendly CLI error, not a traceback
+                raise SystemExit(f"Error: {e}") from None
+        else:
+            out.append(a)
+    return out, trim
+
+
+def cmd_pipeline(argv, device="cuda") -> int:
+    from .pipeline import run_pipeline_cli
+
+    argv, trim = _extract_trim(argv)
+    opt = parse_options(argv, Options(), extras="c")
+    opt.trim = trim
+    return run_pipeline_cli(opt, device)
+
+
+def _extract_device(argv):
+    """Strip ``--device=cuda|cpu`` from argv; return (argv, device)."""
+    out, device = [], "cuda"
+    for a in argv:
+        if a.startswith("--device="):
+            device = a[len("--device=") :]
+            if device not in ("cuda", "cpu"):
+                raise SystemExit(f"Error: --device must be cuda or cpu, got {device!r}")
+        else:
+            out.append(a)
+    return out, device
+
+
+_NOT_PORTED = {
+    "count", "build", "cutoffL", "cutoffU", "pipeline-multi",
+    "filter", "filter-multi", "drawfreq", "figures",
+}
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    argv, device = _extract_device(argv)
+    if not argv:
+        print(__doc__)
+        return 0
+    try:
+        return _dispatch(argv, device)
+    except ValueError as e:
+        if str(e).startswith("Invalid option"):
+            # reference behavior: "Invalid option" + usage + clean exit
+            # (src/Main.cpp:193-197)
+            print("Invalid option")
+            print(__doc__)
+            return 1
+        raise
+
+
+def _dispatch(argv, device) -> int:
+    cmd = argv[0]
+    if cmd == "model":
+        return cmd_model(argv[1:], device)
+    if cmd == "pipeline":
+        return cmd_pipeline(argv[1:], device)
+    if cmd in _NOT_PORTED:
+        print(f"Error: subcommand {cmd!r} is not part of this package", file=sys.stderr)
+        return 1
+    return cmd_run(argv, device)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,274 @@
+# Ported from ploidyfrost_tpu/pipeline.py: the single-sample path.
+"""End-to-end analysis drivers: the `run` and `pipeline` subcommands.
+
+`run_analysis` replaces the reference main path (src/Main.cpp:817-853):
+load graph -> setUnitigId -> printInfo -> findSuperBubble ->
+ploidyEstimation. `run_pipeline_cli` runs the whole single-sample
+pipeline (the reference's script/pipeline/run.sh): reads -> count ->
+cutoffs -> graph -> `run_analysis` -> model.
+
+Both take `device` ("cuda" by default; raises when CUDA is absent, see
+resolve_device). On it run the k-mer extraction kernel, the counter's
+sort-collapse and histogram, the superbubble search and the GMM-EM fit;
+graph construction, coverage probes, alignment and table output are
+host code. Wall times of the stages land in `opt.stage_seconds`.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+import numpy as np
+
+from . import resolve_device
+
+
+def _log(msg: str):
+    print(msg, flush=True)
+
+
+def load_count_db(path: str, k: int):
+    """Load a k-mer count table written by `pipeline` (.npz)."""
+    from .kmer.countdb import KmerCountDB
+
+    if path.endswith(".npz") and os.path.exists(path):
+        z = np.load(path)
+        if int(z["k"]) != k:
+            raise SystemExit(
+                f"Error: count table k={int(z['k'])} != graph k={k}"
+            )
+        return KmerCountDB(z["kmers"], z["counts"], k)
+    if os.path.exists(path + ".npz"):
+        return load_count_db(path + ".npz", k)
+    raise SystemExit(f"Error: Please input the correct kmc database path: {path}")
+
+
+def unitig_coverage(db, g):
+    """Batched readCov(u) for every unitig (src/CDBG.cpp:66-120): mean
+    and min k-mer count per unitig, resolved in one bulk probe batch
+    against the sorted table (host-side by design: the probes are
+    latency-bound and measured faster on host than via device
+    round-trips — see kmer/countdb.py).
+
+    The k-mer feed comes straight from the packed SeqStore (vectorized
+    extraction, graph/seqstore.py) — no per-unitig string walks."""
+    flat, lens = g.store.all_kmers(g.k)
+    counts, hit = db.lookup(flat)
+    if not hit.all():
+        from .kmer.pack import decode_kmers
+
+        missing = decode_kmers([flat[int(np.argmin(hit))]], g.k)[0]
+        print(f"CDBG::readCov():{missing} kmer can not found .")
+        raise SystemExit(1)
+    offs = np.zeros(len(lens), dtype=np.int64)
+    np.cumsum(lens[:-1], out=offs[1:])
+    # segment mean/min via reduceat (ufunc.at is orders slower); int64
+    # segment sums are exact, so the float64 means match the former
+    # float64 reduceat bit-for-bit without copying the 8B/k-mer array
+    mean = np.add.reduceat(counts, offs) / lens
+    mn = np.minimum.reduceat(counts, offs)
+    return mean, mn
+
+
+def window_coverage(db, strings: list[str], lower: int, upper: int):
+    """Batched readCov(s, lower, upper) (src/CDBG.cpp:29-60): for each
+    window string, (mean k-mer count, all-counts-in-(lower,upper) flag)."""
+    from .kmer.pack import encode_bases
+    from .graph.seqstore import SeqStore
+
+    uniq = sorted(set(strings))
+    out: dict[str, tuple[float, bool]] = {}
+    if not uniq:
+        return out
+    # one vectorized encode + word-gather k-mer extraction over the
+    # whole window corpus (the per-window string_kmers_np loop costs
+    # ~130 us/window in python)
+    lens = np.array([len(s) - db.k + 1 for s in uniq], dtype=np.int64)
+    offs = np.zeros(len(lens) + 1, dtype=np.int64)
+    np.cumsum(lens, out=offs[1:])
+    wstore = SeqStore.from_codes(
+        encode_bases("".join(uniq)),
+        np.array([len(s) for s in uniq], dtype=np.int64),
+    )
+    flat, _ = wstore.all_kmers(db.k)
+    counts, hit = db.lookup(flat)
+    if not hit.all():
+        from .kmer.pack import decode_kmers
+
+        missing = decode_kmers([flat[int(np.argmin(hit))]], db.k)[0]
+        print(f"CDBG::readCov():{missing} kmer can not found .")
+        raise SystemExit(1)
+    inb = (counts > lower) & (counts < upper)
+    starts = offs[:-1]
+    ok = np.minimum.reduceat(inb.view(np.uint8), starts) > 0
+    mean = np.add.reduceat(counts, starts) / lens
+    for i, s in enumerate(uniq):
+        out[s] = (float(mean[i]), bool(ok[i]))
+    return out
+
+
+def run_analysis(opt, device="cuda") -> int:
+    """The reference main run (src/Main.cpp:764-853): graph load,
+    setUnitigId, findSuperBubble, ploidyEstimation."""
+    dev = resolve_device(device)
+    from .bubble.batched import find_superbubbles_device as find_superbubbles
+    from .bubble.superbubble import write_superbubble_file
+    from .graph.cdbg import CDBGraph
+    from .sites.emit import analyze_bubbles, write_outputs
+
+    times = opt.stage_seconds
+    t0 = time.time()
+    _log(f"Loading graph from {opt.graphfile}")
+    try:
+        g = CDBGraph.from_gfa(opt.graphfile)
+    except FileNotFoundError:
+        print(f"Error: Graph file not found: {opt.graphfile}", file=sys.stderr)
+        return 1
+    times["load_graph"] = time.time() - t0
+    _log(f"Graph loading Real time : {times['load_graph']}s")
+    if opt.k and g.k != opt.k and opt.k != 25:
+        _log(f"warning: graph k={g.k} overrides -k {opt.k}")
+
+    db = load_count_db(opt.db, g.k)
+
+    os.makedirs("PloidyFrost_output", exist_ok=True)
+    g.set_unitig_id(opt.outprefix)
+    g.write_graph_info(opt.outprefix)
+    if opt.verbose:
+        _log(">>>>>>>>>Graph Information>>>>>>>>>")
+        _log(
+            f"k:{g.k}\tg:{g.g}\tnbKmer:{g.nb_kmers()}\t"
+            f"nbUnitig:{len(g)}\tlength:{g.total_length()}\t"
+        )
+
+    # overlap the host-side coverage probes (unitig_coverage: native
+    # threaded table scans that release the GIL) with the device
+    # superbubble search. The reference interleaves readCov with its
+    # bubble walk across pthreads (src/CDBG.cpp:1917-2642); this is the
+    # same latency-hiding, expressed as one background host task under
+    # the device phase. The unitig-string decode the analysis walk needs
+    # (SeqStore.materialize) rides the same task.
+    from concurrent.futures import ThreadPoolExecutor
+
+    def _cov_and_decode():
+        out = unitig_coverage(db, g)
+        g.seqs.materialize()  # pre-decode for the analysis walk
+        return out
+
+    pool = ThreadPoolExecutor(max_workers=1)
+    cov_future = pool.submit(_cov_and_decode)
+
+    _log("findSuperBubble(): Finding superbubbles")
+    t0 = time.time()
+    state, bubbles = find_superbubbles(g, opt.complex_size, device=dev)
+    write_superbubble_file(g, bubbles, opt.outprefix)
+    times["superbubbles"] = time.time() - t0
+    _log(f"findSuperBubble(): Real time : {times['superbubbles']}s")
+    _log(f"findSuperBubble(): {len(bubbles)}  SuperBubbles Found")
+    # reference parity: -b never stops the run (src/Main.cpp:463, 836-850)
+
+    _log("PloidyEstimation(): Analyzing superbubbles to generate sites' information")
+    t0 = time.time()
+    try:
+        ucov, umin = cov_future.result()
+    finally:
+        pool.shutdown()
+    emissions, window_strings = analyze_bubbles(
+        g,
+        state,
+        ucov,
+        umin,
+        opt.coverage_lower,
+        opt.coverage_upper,
+        opt.match,
+        opt.mismatch,
+        opt.gap,
+    )
+    wcov = window_coverage(
+        db, window_strings, opt.coverage_lower, opt.coverage_upper
+    )
+    stats = write_outputs(emissions, wcov, opt.outprefix)
+    times["sites"] = time.time() - t0
+    _log(f"PloidyEstimation(): Real time : {times['sites']}s")
+    a = stats["allele"]
+    _log(
+        "PloidyEstimation(): Alleles in SuperBubbles  :\t"
+        f"2 :{a[0]}\t3 :{a[1]}\t4 :{a[2]}\t5 :{a[3]}"
+    )
+    if stats["core_num"]:
+        _log(
+            "PloidyEstimation(): Sites' Average Coverage:"
+            f"{stats['core_cov'] // stats['core_num']}"
+        )
+    return 0
+
+
+def run_pipeline_cli(opt, device="cuda") -> int:
+    """reads -> count -> graph -> bubbles -> variants -> model, one shot
+    (replaces script/pipeline/run.sh). Returns 0, or 1 on bad input."""
+    dev = resolve_device(device)
+    from .graph.construct import build_graph_from_kmers, simplify
+    from .io.fastx import read_batches
+    from .kmer.count import KmerCounter
+    from .kmer.cutoffs import cutoff_lower_from_counts, cutoff_upper_from_counts
+    from .model.gmm import run_model
+
+    if not opt.inputs:
+        print("Error: no input reads", file=sys.stderr)
+        return 1
+    times = opt.stage_seconds
+
+    t0 = time.time()
+    t_read = 0.0
+    counter = KmerCounter(opt.k, device=dev)
+    batches = read_batches(opt.inputs, opt.k, trim=getattr(opt, "trim", None))
+    while True:
+        tr = time.time()
+        batch = next(batches, None)
+        t_read += time.time() - tr
+        if batch is None:
+            break
+        counter.add_reads(batch)
+    counter.write_histogram(opt.outprefix + ".hist.txt")
+    hist = counter.histogram(10000)
+    times["read"] = t_read
+    times["count"] = time.time() - t0 - t_read
+    lower = max(10, cutoff_lower_from_counts(list(hist[1:])))
+    upper = cutoff_upper_from_counts(list(hist[1:]), opt.frequency)
+    _log(f"pipeline: cutoffs L={lower} U={upper}")
+    opt.coverage_lower = lower
+    opt.coverage_upper = upper
+
+    t0 = time.time()
+    km, ct = counter.arrays()
+    # graph on k-mers >= lower cutoff = the reference's read-masking
+    # stage (kmc_tools filter -ci<lower>, script/pipeline/3.filter)
+    g = simplify(build_graph_from_kmers(km[ct >= lower], opt.k), opt.k)
+    g.write_gfa(opt.outprefix + ".gfa")
+    np.savez(opt.outprefix + ".kmers.npz", kmers=km, counts=ct, k=opt.k)
+    times["build_graph"] = time.time() - t0
+    opt.graphfile = opt.outprefix + ".gfa"
+    opt.db = opt.outprefix + ".kmers.npz"
+    rc = run_analysis(opt, dev)
+    if rc:
+        return rc
+    t0 = time.time()
+    ploidy = run_model(
+        opt.outprefix,
+        fre_file=os.path.join(
+            "PloidyFrost_output", opt.outprefix + "_allele_frequency.txt"
+        ),
+        gauss_lower=1,
+        gauss_upper=9,
+        frequency=0.0,
+        max_iter=1000,
+        delta=opt.delta,
+        m_threshold=opt.mthreshold,
+        n_threshold=opt.nthreshold,
+        device=dev,
+    )
+    times["model"] = time.time() - t0
+    _log(f"estimated ploidy level is : {int(ploidy)}")
+    return 0

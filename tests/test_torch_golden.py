@@ -1,0 +1,133 @@
+"""Golden end-to-end test of the torch port on the CPU.
+
+The port's `pipeline` runs with device="cpu" on the single_diploid reads
+(the same generator as tests/test_golden.py) and must reproduce the 12
+reference output tables and gold_model_result.txt byte for byte, with
+cutoffs (10, 37) and ploidy 2. Also: importing the port's CLI loads
+neither jax nor ploidyfrost_tpu, and the entry points refuse to run
+when CUDA is asked for (the default) and absent.
+"""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from test_golden import FILES, GOLD, make_reads
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def port_run(tmp_path_factory):
+    from ploidyfrost_tpu_torch.cli import Options, parse_options
+    from ploidyfrost_tpu_torch.pipeline import run_pipeline_cli
+
+    d = tmp_path_factory.mktemp("torch_golden")
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        make_reads("reads.fa")
+        opt = parse_options(["-o", "gold", "reads.fa"], Options(), extras="c")
+        assert run_pipeline_cli(opt, device="cpu") == 0
+        yield str(d), opt
+    finally:
+        os.chdir(cwd)
+
+
+@pytest.mark.parametrize("name", FILES)
+def test_table_matches_reference(port_run, name):
+    d, _ = port_run
+    with open(os.path.join(d, "PloidyFrost_output", f"gold_{name}.txt"), "rb") as f1, open(
+        os.path.join(GOLD, f"gold_{name}.txt"), "rb"
+    ) as f2:
+        assert f1.read() == f2.read(), f"{name} differs from reference output"
+
+
+def test_model_result_matches_reference(port_run):
+    d, _ = port_run
+    with open(os.path.join(d, "gold_model_result.txt"), "rb") as f1, open(
+        os.path.join(GOLD, "gold_model_result.txt"), "rb"
+    ) as f2:
+        assert f1.read() == f2.read()
+
+
+def test_cutoffs_and_ploidy(port_run):
+    d, opt = port_run
+    assert (opt.coverage_lower, opt.coverage_upper) == (10, 37)
+    with open(os.path.join(d, "gold_model_result.txt")) as f:
+        assert f.read().rstrip().endswith("estimated ploidy level is : 2")
+    assert set(opt.stage_seconds) == {
+        "read", "count", "build_graph", "load_graph", "superbubbles", "sites", "model",
+    }
+
+
+def test_run_subcommand_on_pipeline_outputs(port_run, tmp_path):
+    """`run` on the GFA and count table that `pipeline` wrote gives the
+    same tables (the CLI path, with --device=cpu)."""
+    from ploidyfrost_tpu_torch.cli import main
+
+    d, _ = port_run
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        rc = main([
+            "-g", os.path.join(d, "gold.gfa"), "-d", os.path.join(d, "gold.kmers.npz"),
+            "-o", "again", "-l", "10", "-u", "37", "--device=cpu",
+        ])
+        assert rc == 0
+        for name in FILES:
+            with open(os.path.join("PloidyFrost_output", f"again_{name}.txt"), "rb") as f1, open(
+                os.path.join(GOLD, f"gold_{name}.txt"), "rb"
+            ) as f2:
+                assert f1.read() == f2.read(), name
+        fre = os.path.join("PloidyFrost_output", "again_allele_frequency.txt")
+        assert main(["model", "-g", fre, "-o", "again", "--device=cpu"]) == 0
+        with open("again_model_result.txt", "rb") as f1, open(
+            os.path.join(GOLD, "gold_model_result.txt"), "rb"
+        ) as f2:
+            assert f1.read() == f2.read()
+    finally:
+        os.chdir(cwd)
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import ploidyfrost_tpu_torch.cli, ploidyfrost_tpu_torch.pipeline\n"
+        "import ploidyfrost_tpu_torch.kmer.count, ploidyfrost_tpu_torch.bubble.batched\n"
+        "import ploidyfrost_tpu_torch.model.gmm, ploidyfrost_tpu_torch.sites.emit\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'ploidyfrost_tpu' or m.startswith('ploidyfrost_tpu.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("entry", ["pipeline", "run_analysis", "run_model", "cli"])
+def test_entry_points_refuse_without_cuda(entry, tmp_path):
+    """Without device=, an entry point asks for CUDA; on a host without
+    it, it raises before doing any work instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from ploidyfrost_tpu_torch import cli, pipeline
+    from ploidyfrost_tpu_torch.model.gmm import run_model
+
+    fre = tmp_path / "af.txt"
+    fre.write_text("0.5\n0.4\n0.6\n")
+    opt = cli.parse_options(["-o", str(tmp_path / "x"), str(tmp_path / "none.fa")], cli.Options())
+    calls = {
+        "pipeline": lambda: pipeline.run_pipeline_cli(opt),
+        "run_analysis": lambda: pipeline.run_analysis(opt),
+        "run_model": lambda: run_model(str(tmp_path / "m"), fre_file=str(fre)),
+        "cli": lambda: cli.main(["model", "-g", str(fre), "-o", str(tmp_path / "m")]),
+    }
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()
+    assert not (tmp_path / "m_model_result.txt").exists()
