@@ -1,20 +1,33 @@
 """Smoke test of ploidyfrost_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline-cu PATH]
 
 Phases (any failure exits non-zero):
-  1. build every CUDA kernel of the package from csrc/ (nvcc, sm_90a);
+  1. build every CUDA kernel of the package from csrc/ (nvcc, sm_90a,
+     one nvcc each, all at once);
   2. hold kernel K1 (canonical k-mer extraction) bit-exact against its
-     plain torch version on the card, over random codes with Ns,
-     k in {5, 16, 17, 25, 31}, several batch shapes, all-invalid rows;
+     plain torch version on the card, over random codes with Ns and
+     other invalid codes: k in {1, 2, 5, 16, 17, 25, 31}, L from k to
+     4100 and one read near MAX_READ_LEN, B from 1 to 16384 and a B that
+     is no multiple of a tile's rows and one that gives each CTA several
+     tiles, output offsets {0, 1, 7}; the fused valid count, accumulated
+     over two calls, equal to the plain count; nothing written outside
+     the slice;
   3. golden: regenerate the single_diploid reads (100 kb diploid, k=25)
      and run the port's `pipeline` on the card: cutoffs (10, 37), the 12
      output tables byte-identical to tests/golden/single_diploid, the
      model result equal to 6 significant digits, ploidy 2;
   4. real size: the bench5m read set (5 Mbp diploid, 1% het, 150 bp
      reads at 25x, seed 7) through `pipeline` on the card, ploidy 2, with
-     per-stage wall times, K1's launches on that run, K1's time against
-     its bound and its plain version's time, and peak device memory.
+     the native host libraries that loaded (graph construction must),
+     per-stage wall times, K1's launches on that run, peak device
+     memory; then K1 at the main path's batch shape: the per-launch
+     median and min-max of the bare kernel and of the main-path call
+     (with the fused count), against its bound and its plain version's
+     time, K1 back to back in a CUDA graph, and, with --baseline-cu, an
+     earlier K1 source with the C ABI (codes, B, L, k, out, stream)
+     built and timed in the same call, in turns; and a profiler trace
+     of one counter batch, which must hold exactly one kernel, K1.
 
 The line before the last is the kernel table as one JSON object; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -24,6 +37,8 @@ result. It never imports jax or ploidyfrost_tpu.
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import math
 import os
@@ -42,8 +57,6 @@ GOLD_FILES = [
     "trifre", "tetracov", "tetrafre", "pentacov", "pentafre",
     "allele_frequency",
 ]
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-ALU_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (data sheet)
 
 
 def log(msg: str):
@@ -97,104 +110,184 @@ def make_bench5m_reads(path: str, genome_bp: int = 5_000_000, het: float = 0.01,
                 f.write(f">r{n}\n" + bases[hap[s : s + L]].tobytes().decode() + "\n")
 
 
-def build_kernels() -> float:
-    """Build every csrc/*.cu at once (one nvcc each); return seconds."""
+def build_kernels(baseline_cu: str | None):
+    """Build every csrc/*.cu at once (one nvcc each), and the baseline
+    K1 source if given into WORK; return (seconds, baseline lib)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ploidyfrost_tpu_torch.kmer import extract
 
+    def build_baseline():
+        lib = os.path.join(WORK, "libk1_baseline.so")
+        subprocess.run([extract._nvcc(), *extract.NVCC_FLAGS, "-o", lib, baseline_cu],
+                       check=True, capture_output=True, text=True, timeout=600)
+        return lib
+
     names = sorted(f[:-3] for f in os.listdir(extract.CSRC) if f.endswith(".cu"))
     t0 = time.time()
-    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+    with ThreadPoolExecutor(max_workers=len(names) + 1) as pool:
+        base = pool.submit(build_baseline) if baseline_cu else None
         libs = list(pool.map(extract.build, names))
+        base_lib = base.result() if base else None
     for name, lib in zip(names, libs):
         log(f"built {name} -> {os.path.relpath(lib, ROOT)}")
-    return time.time() - t0
+    if base_lib:
+        log(f"built baseline K1 from {baseline_cu}")
+    return time.time() - t0, base_lib
 
 
-def check_extract(device) -> int:
-    """K1 against its plain version on `device`; returns the max |diff|."""
-    import torch
-
-    from ploidyfrost_tpu_torch.kmer.extract import (
-        extract_canonical_into,
-        extract_canonical_plain,
-    )
-    from ploidyfrost_tpu_torch.kmer.pack import SENTINEL
-
-    rng = np.random.default_rng(0)
-    worst = 0
-    cases = 0
-    for k in (5, 16, 17, 25, 31):
-        for B, L in ((1, k), (3, 40), (257, 64), (1000, 151), (16384, 160), (5, 4100)):
-            if L < k:
-                continue
-            codes = rng.integers(0, 4, size=(B, L)).astype(np.uint8)
-            codes[rng.random((B, L)) < 0.01] = 4  # N
-            codes[:: 7] = np.where(rng.random((len(codes[::7]), L)) < 0.5, 4, codes[::7])
-            codes[B // 2] = 4  # an all-invalid row
-            dev = torch.from_numpy(codes).to(device)
-            n = L - k + 1
-            out = torch.full((B * n + 11,), -5, dtype=torch.int64, device=device)
-            nv = extract_canonical_into(dev, k, out, offset=7)
-            if out.is_cuda:
-                torch.cuda.synchronize()
-            ref = extract_canonical_plain(dev, k)
-            got = out[7 : 7 + B * n]
-            if not torch.equal(got, ref):
-                bad = int((got != ref).sum())
-                raise AssertionError(f"K1 differs from plain at k={k} B={B} L={L}: {bad} keys")
-            if int((out[:7] != -5).sum()) or int((out[7 + B * n :] != -5).sum()):
-                raise AssertionError(f"K1 wrote outside its slice at k={k} B={B} L={L}")
-            if int(nv) != int((ref != SENTINEL).sum()):
-                raise AssertionError("K1 valid count differs")
-            if not bool((got[n * (B // 2) : n * (B // 2 + 1)] == SENTINEL).all()):
-                raise AssertionError("all-invalid row produced keys")
-            worst = max(worst, int((got - ref).abs().max()) if got.numel() else 0)
-            cases += 1
-    log(f"K1 vs plain on {device}: {cases} cases bit-exact")
-    return worst
-
-
-def time_extract(B=16384, L=160, k=25, reps=200):
-    """K1 and its plain version at the main path's batch shape, timed
-    with CUDA events; returns (kernel ms, plain ms, bound ms, bound_by)."""
+def check_extract() -> tuple[int, int]:
+    """K1 against its plain version on the card; returns (max |diff|,
+    cases)."""
     import torch
 
     from ploidyfrost_tpu_torch.kmer import extract
+    from ploidyfrost_tpu_torch.kmer.extract_bench import random_codes
+    from ploidyfrost_tpu_torch.kmer.pack import SENTINEL
 
-    rng = np.random.default_rng(1)
-    codes = torch.from_numpy(rng.integers(0, 4, size=(B, L)).astype(np.uint8)).cuda()
+    Bs = (1, 3, 257, 1000, 16384, 16381)  # 16381: no multiple of a tile's rows
+    cases = []  # (k, B, L, offset)
+    for i, k in enumerate((1, 2, 5, 16, 17, 25, 31)):
+        for j, L in enumerate(sorted({k, k + 1, 40, 64, 151, 160, 4100})):
+            if L >= k:
+                B = min(Bs[(i + j) % len(Bs)], max(1, 4_000_000 // L))
+                cases.append((k, B, L, (0, 1, 7)[(i + j) % 3]))
+        cases.append((k, 2, extract.MAX_READ_LEN - 3 * k, (1, 7)[i % 2]))
+    for k in (1, 25, 31):
+        for j, B in enumerate(Bs):
+            cases.append((k, B, 160, (0, 1, 7)[j % 3]))
+    cases.append((25, 65536, 160, 1))  # several tiles a CTA: the double buffer
+    worst = 0
+    for c, (k, B, L, off) in enumerate(cases):
+        dev = random_codes(B, L, seed=c)
+        dev[::7, : L // 2] = 4
+        dev[B // 2] = 4  # an all-invalid row
+        n = L - k + 1
+        out = torch.full((off + B * n + 11,), -5, dtype=torch.int64, device="cuda")
+        count = torch.zeros((), dtype=torch.int64, device="cuda")
+        extract.extract_canonical_into(dev, k, out, off, count=count)
+        fresh = extract.extract_canonical_into(dev, k, out, off)
+        extract.extract_canonical_into(dev, k, out, off, count=count)
+        torch.cuda.synchronize()
+        ref = extract.extract_canonical_plain(dev, k)
+        got = out[off : off + B * n]
+        where = f"k={k} B={B} L={L} offset={off}"
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K1 differs from plain at {where}: {int((got != ref).sum())} keys")
+        if int((out[:off] != -5).sum()) or int((out[off + B * n :] != -5).sum()):
+            raise AssertionError(f"K1 wrote outside its slice at {where}")
+        want = int((ref != SENTINEL).sum())
+        if int(count) != 2 * want or int(fresh) != want:
+            raise AssertionError(f"K1 valid count {int(count)}/{int(fresh)} != plain {want} at {where}")
+        if not bool((got[n * (B // 2) : n * (B // 2 + 1)] == SENTINEL).all()):
+            raise AssertionError(f"all-invalid row produced keys at {where}")
+        worst = max(worst, int((got - ref).abs().max()) if got.numel() else 0)
+    return worst, len(cases)
+
+
+def time_extract(baseline_lib: str | None, B=16384, L=160, k=25, reps=200) -> dict:
+    """K1 at the main path's batch shape, timed per launch with CUDA
+    events and L2 scrubbed: the bare kernel, the main-path call (the
+    wrapper with the fused count), the plain version, and the baseline
+    K1 if built, in turns with K1 (baseline, K1, K1, baseline); the
+    host time of the main-path call; K1 back to back in a CUDA graph;
+    and two yardsticks timed the same way."""
+    import torch
+
+    from ploidyfrost_tpu_torch.kmer import extract
+    from ploidyfrost_tpu_torch.kmer.extract_bench import (
+        bound_ms, event_times, graph_ms, host_us, random_codes, scrub_buffer, spread)
+    from ploidyfrost_tpu_torch.kmer.pack import SENTINEL
+
+    codes = random_codes(B, L, seed=1)
     n = L - k + 1
     out = torch.empty(B * n, dtype=torch.int64, device="cuda")
-    # flush L2 (50 MB) between launches as the counter finds it cold
-    scrub = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    count = torch.zeros((), dtype=torch.int64, device="cuda")
+    scrub = scrub_buffer()
+    stream = torch.cuda.current_stream().cuda_stream
 
-    def timed(fn, reps):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        total = 0.0
-        for _ in range(reps):
-            scrub.zero_()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            total += a.elapsed_time(b)
-        return total / reps
+    def bare():
+        extract.launch(codes, k, out, count)
+
+    def main_path():
+        extract.extract_canonical_into(codes, k, out, 0, count=count)
+
+    def plain():
+        out.copy_(extract.extract_canonical_plain(codes, k))
+        count.add_((out != SENTINEL).sum())
+
+    runs = {"ms": [], "main_ms": [], "baseline_ms": []}
+    base = None
+    if baseline_lib:
+        fn = ctypes.CDLL(baseline_lib).pf_extract_canonical
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+        def base():
+            if fn(codes.data_ptr(), B, L, k, out.data_ptr(), stream):
+                raise RuntimeError("baseline K1 launch failed")
+
+    def rotating():
+        # four (codes, out) sets, 82 MB together: more than L2 holds
+        sets = [(random_codes(B, L, seed=10 + i), torch.empty_like(out)) for i in range(4)]
+        return [lambda c=c, o=o: extract.launch(c, k, o, count) for c, o in sets]
 
     before = extract.LAUNCHES
-    ms = timed(lambda: extract._extract_keys(codes, k, out, 0), reps)
-    plain_ms = timed(lambda: extract.extract_canonical_plain(codes, k), max(reps // 10, 5))
+    half = reps // 2
+    for name, f in (("baseline_ms", base), ("ms", bare), ("main_ms", main_path),
+                    ("ms", bare), ("main_ms", main_path), ("baseline_ms", base)):
+        if f is not None:
+            runs[name] += event_times(f, half, scrub)
+    plain_ms = spread(event_times(plain, max(reps // 10, 5), scrub))[0]
+    res = {"plain_ms": plain_ms, "main_host_us": host_us(main_path),
+           "graph_ms": graph_ms(rotating(), reps),
+           # yardsticks under the same timing: torch writing the same
+           # output bytes (no input, no arithmetic), and a one-element
+           # kernel (the cost of a launch between two events)
+           "fill_ms": spread(event_times(lambda: out.fill_(0), reps, scrub))[0],
+           "launch_ms": spread(event_times(lambda: count.fill_(0), reps, scrub))[0]}
     extract.LAUNCHES = before  # timing launches are not the main path's
-    nbytes = B * L + B * n * 8
-    ops = B * n * 8  # roll fwd, roll rc, validity, min, select per window
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ALU_OPS_PER_S * 1e3
-    return ms, plain_ms, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    res["bound_ms"], res["bound_by"] = bound_ms(B, L, k)
+    for name, times in runs.items():
+        if times:
+            res[name] = spread(times)
+    return res
+
+
+def profile_batch(B=16384, L=160, k=25) -> list[str]:
+    """Names of the CUDA kernels that one counter batch (already on the
+    card) runs, from a torch.profiler trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ploidyfrost_tpu_torch.kmer.count import KmerCounter
+    from ploidyfrost_tpu_torch.kmer.extract_bench import random_codes
+
+    counter = KmerCounter(k, device="cuda")
+    codes = random_codes(B, L, seed=2)
+    counter.add_reads(codes)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        counter.add_reads(codes)
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+
+
+def native_libraries() -> dict:
+    """Which of the port's native host libraries loaded."""
+    from ploidyfrost_tpu_torch import native
+
+    return {
+        "reader": native.load_library() is not None,
+        "construct": native.load_construct_library() is not None,
+        "chain": native.load_chain_library() is not None,
+        "nw": native.load_nw_library() is not None,
+        "lookup": native.load_lookup_library() is not None,
+    }
 
 
 def run_pipeline(reads: str, prefix: str, device: str):
@@ -258,6 +351,10 @@ def golden(device: str, work: str):
 def main() -> int:
     import torch
 
+    ap = argparse.ArgumentParser(description="Smoke test of ploidyfrost_tpu_torch on one GPU.")
+    ap.add_argument("--baseline-cu", help="an earlier K1 source, C ABI pf_extract_canonical"
+                    "(codes, B, L, k, out, stream), to build and time beside K1 in this call")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -265,16 +362,18 @@ def main() -> int:
 
     if "jax" in sys.modules or "ploidyfrost_tpu" in sys.modules:
         raise AssertionError("the port pulled in jax or ploidyfrost_tpu")
+    baseline_cu = os.path.abspath(args.baseline_cu) if args.baseline_cu else None
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
 
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
-    build_s = build_kernels()
+    build_s, baseline_lib = build_kernels(baseline_cu)
     log(f"phase 1: kernels built in {build_s:.2f} s")
 
-    err = check_extract("cuda")
-    log("phase 2: K1 bit-exact against its plain version")
+    err, n_cases = check_extract()
+    log(f"phase 2: K1 bit-exact against its plain version on {n_cases} cases, "
+        f"fused count equal to the plain count")
 
     extract.LAUNCHES = 0
     golden("cuda", os.path.join(WORK, "golden"))
@@ -282,6 +381,11 @@ def main() -> int:
         raise AssertionError("golden pipeline never launched K1")
     log(f"phase 3: golden passed, K1 launches {extract.LAUNCHES}")
 
+    libs = native_libraries()
+    log("native host libraries: " + ", ".join(
+        f"{name} {'loaded' if ok else 'NOT loaded'}" for name, ok in libs.items()))
+    if not libs["construct"]:
+        raise AssertionError("the graph-construction library did not load")
     bench = os.path.join(WORK, "bench5m")
     os.makedirs(bench)
     os.chdir(bench)
@@ -303,9 +407,25 @@ def main() -> int:
         f"{opt.coverage_upper}), ploidy {ploidy}, K1 launches {launches}, "
         f"peak device memory {peak / 2**30:.3f} GiB")
 
-    ms, plain_ms, bound_ms, bound_by = time_extract()
-    log(f"K1 at B=16384 L=160 k=25: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by})")
+    t = time_extract(baseline_lib)
+    ms = t["ms"][0]
+    share = t["bound_ms"] / ms
+    log("K1 at B=16384 L=160 k=25, per launch (median [min, max]): "
+        f"kernel {ms:.4f} ms [{t['ms'][1]:.4f}, {t['ms'][2]:.4f}], "
+        f"main-path call {t['main_ms'][0]:.4f} ms [{t['main_ms'][1]:.4f}, {t['main_ms'][2]:.4f}], "
+        f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+        f"{100 * share:.1f}% of bound; main-path call {t['main_host_us']:.1f} us of host time; "
+        f"back to back in a CUDA graph on rotating buffers {t['graph_ms']:.4f} ms a launch; "
+        f"same timing, torch fill of the same output {t['fill_ms']:.4f} ms, "
+        f"one-element kernel {t['launch_ms']:.4f} ms")
+    if "baseline_ms" in t:
+        b = t["baseline_ms"]
+        log(f"baseline K1 ({args.baseline_cu}) in the same call: {b[0]:.4f} ms "
+            f"[{b[1]:.4f}, {b[2]:.4f}]")
+    kernels_seen = profile_batch()
+    log(f"profiler, one add_reads of a [16384, 160] batch on the card: {kernels_seen}")
+    if len(kernels_seen) != 1 or "extract_canonical" not in kernels_seen[0]:
+        raise AssertionError(f"a counter batch ran {kernels_seen}, not K1 alone")
     log("phase 4: bench5m passed")
 
     smi = subprocess.run(
@@ -322,10 +442,11 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": float(err),
         "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
         "library_ms": None,
+        "share_of_bound": share,
     }]}
     if smi.returncode != 0 or not smi.stdout.strip():
         raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
@@ -334,7 +455,7 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
+        "count": 1,
     }}))
     return 0
 

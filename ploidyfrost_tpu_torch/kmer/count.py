@@ -7,8 +7,10 @@ The reference pipeline shells out to `kmc -ci1 -cs10000 -k25`
                -> (rare) collapse: sort + run-length count + merge
 
   * add_reads copies a [B, L] code batch to the device and K1 writes its
-    int64 canonical keys straight into the instance buffer at `fill` —
-    no host sync per batch.
+    int64 canonical keys straight into the instance buffer at `fill`,
+    and in the same launch adds the batch's number of valid windows into
+    the device counter `_n_valid_dev`: one kernel a batch, no separate
+    reduction, no host sync per batch.
   * flush sorts the filled part of the buffer, run-length counts it
     (unique_consecutive), and merges the runs into the resident table of
     unique keys with a second sort. Counts are clamped to counter_max at
@@ -112,8 +114,7 @@ class KmerCounter:
         if self._fill + B * n_row > cap:
             self.flush()
         dev = codes.to(self.device).contiguous()
-        nv = extract_canonical_into(dev, self.k, self._buf, self._fill)
-        self._n_valid_dev += nv
+        extract_canonical_into(dev, self.k, self._buf, self._fill, count=self._n_valid_dev)
         self._fill += B * n_row
 
     # -- collapse --------------------------------------------------------

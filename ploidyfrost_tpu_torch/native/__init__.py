@@ -1,12 +1,16 @@
-# Copied from ploidyfrost_tpu/native/__init__.py.
-"""Build + load the native FASTX batch loader (ctypes C ABI).
+# Copied from ploidyfrost_tpu/native/__init__.py; builds made race-free.
+"""Build + load the native host libraries (ctypes C ABI).
 
-The shared library is compiled on first use with the system toolchain
-(g++ -O2 -shared -fPIC, linked against zlib) into this package's
-``_build`` directory and cached across runs (rebuilt when the source is
-newer than the binary). Loading is best-effort: any build or load
-failure degrades to the pure-Python reader in io/fastx.py — the native
-path is a throughput optimization, never a correctness dependency.
+Each shared library (the FASTX reader, linked against zlib, and the
+single-file C ABI kernels below) is compiled on first use with the
+system toolchain (g++ -O2 -shared -fPIC) into this package's ``_build``
+directory and cached across runs (rebuilt when the source is newer than
+the binary). A build writes to a temporary name unique to the process
+and is moved into place, so processes that build the same library at
+once each load a complete one. Loading is best-effort: any build or
+load failure degrades to the pure-Python or numpy path of the caller
+(io/fastx.py for the reader) — the native path is a throughput
+optimization, never a correctness dependency.
 """
 
 from __future__ import annotations
@@ -16,57 +20,64 @@ import os
 import subprocess
 import threading
 
-_SRC = os.path.join(os.path.dirname(__file__), "fastx_reader.cpp")
-_BUILD_DIR = os.path.join(os.path.dirname(__file__), "_build")
-_LIB = os.path.join(_BUILD_DIR, "libpfxreader.so")
+_DIR = os.path.dirname(__file__)
+_BUILD_DIR = os.path.join(_DIR, "_build")
 
 _lock = threading.Lock()
-_lib = None
-_tried = False
+_fastx_state: dict = {}
 
 
-def _build() -> bool:
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    cmd = [
-        os.environ.get("CXX", "g++"),
-        "-O2",
-        "-shared",
-        "-fPIC",
-        "-o",
-        _LIB + ".tmp",
-        _SRC,
-        "-lz",
-    ]
+def _build(src: str, lib_path: str, libs: tuple = ()):
+    """Compile `src` into `lib_path` unless the library there is newer
+    than its source. Each process compiles to a name of its own and
+    moves the result into place, so processes that build at once never
+    share a file and each ends with a complete library at `lib_path`.
+    Raises OSError or SubprocessError on failure."""
+    if os.path.exists(lib_path) and os.path.getmtime(src) <= os.path.getmtime(lib_path):
+        return
+    os.makedirs(os.path.dirname(lib_path), exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
     try:
         subprocess.run(
-            cmd, check=True, capture_output=True, timeout=120
+            [os.environ.get("CXX", "g++"), "-O2", "-shared", "-fPIC", "-pthread",
+             "-o", tmp, src, *libs],
+            check=True,
+            capture_output=True,
+            timeout=120,
         )
-    except (OSError, subprocess.SubprocessError):
-        return False
-    os.replace(_LIB + ".tmp", _LIB)
-    return True
+        os.replace(tmp, lib_path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
-def load_library():
-    """Return the loaded ctypes library, or None if unavailable."""
-    global _lib, _tried
-    if _lib is not None:
-        return _lib
+def _load_simple(src_name: str, lib_name: str, state: dict, sig, libs: tuple = ()):
+    """Build and load one single-file C ABI library: the library, or
+    None when it cannot be built or loaded (the callers then take their
+    pure-Python or numpy paths)."""
+    if state.get("lib") is not None:
+        return state["lib"]
     with _lock:
-        if _lib is not None or _tried:
-            return _lib
-        _tried = True
+        if state.get("lib") is not None or state.get("tried"):
+            return state.get("lib")
+        state["tried"] = True
         if os.environ.get("PLOIDYFROST_NO_NATIVE"):
             return None
         try:
-            need_build = not os.path.exists(_LIB) or (
-                os.path.getmtime(_SRC) > os.path.getmtime(_LIB)
-            )
-            if need_build and not _build():
-                return None
-            lib = ctypes.CDLL(_LIB)
-        except OSError:
+            lib_path = os.path.join(_BUILD_DIR, lib_name)
+            _build(os.path.join(_DIR, src_name), lib_path, libs)
+            lib = ctypes.CDLL(lib_path)
+            sig(lib)  # AttributeError on a stale/corrupt .so -> fallback
+        except (OSError, subprocess.SubprocessError, AttributeError):
             return None
+        state["lib"] = lib
+        return lib
+
+
+def load_library():
+    """Return the loaded FASTX reader library, or None if unavailable."""
+
+    def sig(lib):
         lib.pfx_open.argtypes = [ctypes.c_char_p]
         lib.pfx_open.restype = ctypes.c_void_p
         lib.pfx_set_trim.argtypes = [
@@ -92,51 +103,8 @@ def load_library():
         lib.pfx_error.restype = ctypes.c_char_p
         lib.pfx_close.argtypes = [ctypes.c_void_p]
         lib.pfx_close.restype = None
-        _lib = lib
-        return _lib
 
-
-def _load_simple(src_name: str, lib_name: str, state: dict, sig):
-    """Build-and-load helper for single-file C ABI kernels (same
-    best-effort contract as the FASTX loader above)."""
-    if state.get("lib") is not None:
-        return state["lib"]
-    with _lock:
-        if state.get("lib") is not None or state.get("tried"):
-            return state.get("lib")
-        state["tried"] = True
-        if os.environ.get("PLOIDYFROST_NO_NATIVE"):
-            return None
-        src = os.path.join(os.path.dirname(__file__), src_name)
-        lib_path = os.path.join(_BUILD_DIR, lib_name)
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        try:
-            need_build = not os.path.exists(lib_path) or (
-                os.path.getmtime(src) > os.path.getmtime(lib_path)
-            )
-            if need_build:
-                subprocess.run(
-                    [
-                        os.environ.get("CXX", "g++"),
-                        "-O2",
-                        "-shared",
-                        "-fPIC",
-                        "-pthread",
-                        "-o",
-                        lib_path + ".tmp",
-                        src,
-                    ],
-                    check=True,
-                    capture_output=True,
-                    timeout=120,
-                )
-                os.replace(lib_path + ".tmp", lib_path)
-            lib = ctypes.CDLL(lib_path)
-            sig(lib)  # AttributeError on a stale/corrupt .so -> fallback
-        except (OSError, subprocess.SubprocessError, AttributeError):
-            return None
-        state["lib"] = lib
-        return lib
+    return _load_simple("fastx_reader.cpp", "libpfxreader.so", _fastx_state, sig, ("-lz",))
 
 
 _nw_state: dict = {}
