@@ -1,6 +1,6 @@
 """Smoke test of ploidyfrost_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--baseline-cu PATH]
+    python3 chip_smoke.py [--baseline-cu PATH] [--profile-multi]
 
 Phases (any failure exits non-zero):
   1. build every CUDA kernel of the package from csrc/ (nvcc, sm_90a,
@@ -27,7 +27,26 @@ Phases (any failure exits non-zero):
      time, K1 back to back in a CUDA graph, and, with --baseline-cu, an
      earlier K1 source with the C ABI (codes, B, L, k, out, stream)
      built and timed in the same call, in turns; and a profiler trace
-     of one counter batch, which must hold exactly one kernel, K1.
+     of one counter batch, which must hold exactly one kernel, K1;
+  5. colored golden: regenerate the multi_colored reads (3 diploid
+     samples of one 60 kb genome, k=25) and run the colored path on the
+     card: count, filter, union, color_graph, the .bfg_colors writer and
+     reader, `run -f -C`, `model`: cutoffs (10, 39), (10, 41), (10, 37),
+     the 12 tables byte-identical to tests/golden/multi_colored, the
+     model result equal to 6 significant digits, ploidy 2;
+  6. multi-sample at a real size, "multi3x5m": the same generator at
+     5 Mbp (3 samples, 0.3% het a sample, 150 bp reads, 14 passes a
+     haplotype, seed 7; about 118 M k-mer instances a sample) through
+     `pipeline-multi` on the card: ploidy 2, K1 launched, every stage's
+     seconds, the wall, cutoffs, unitigs, colors, bubbles, peak memory;
+  7. the two torch programs on the card: `build` of the bench5m reads
+     with and without --device-build (byte-identical GFA; the link step
+     timed both ways on that k-mer set, in turns), and
+     kmer/countdb.lookup_device against KmerCountDB.lookup on the
+     bench5m table with about 10 M queries, half of them reverse
+     complements and a tenth absent (counts and hits equal, both timed).
+
+All five native host libraries must load.
 
 The line before the last is the kernel table as one JSON object; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -52,6 +71,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, ".smoke_work")
 GOLD = os.path.join(ROOT, "tests", "golden", "single_diploid")
+GOLD_COLORED = os.path.join(ROOT, "tests", "golden", "multi_colored")
+COLORED_CUTOFFS = [(10, 39), (10, 41), (10, 37)]
 GOLD_FILES = [
     "Unitig_Id", "super_bubble", "alignseq", "bicov", "bifre", "tricov",
     "trifre", "tetracov", "tetrafre", "pentacov", "pentafre",
@@ -108,6 +129,34 @@ def make_bench5m_reads(path: str, genome_bp: int = 5_000_000, het: float = 0.01,
             for s in starts:
                 n += 1
                 f.write(f">r{n}\n" + bases[hap[s : s + L]].tobytes().decode() + "\n")
+
+
+def make_sample_reads(d: str, genome_bp: int) -> list[str]:
+    """Three diploid samples of one shared genome, 0.3% het SNPs a
+    sample, 150 bp reads, 14 passes a haplotype, seed 7: at 60 kb the
+    multi_colored read set (tests/test_golden_colored.py
+    make_sample_reads), at 5 Mbp the multi3x5m one."""
+    rng = np.random.default_rng(7)
+    G = genome_bp
+    g1 = rng.integers(0, 4, G)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    paths = []
+    for s in range(3):
+        h1 = g1.copy()
+        h2 = g1.copy()
+        snp = rng.random(G) < 0.003
+        h2[snp] = (h2[snp] + rng.integers(1, 4, snp.sum())) % 4
+        path = os.path.join(d, f"s{s}.fa")
+        with open(path, "w") as f:
+            n = 0
+            for hap in (h1, h2):
+                seq = bases[hap].tobytes().decode()
+                for _ in range(14):
+                    for st in rng.integers(0, G - 150, G // 150):
+                        n += 1
+                        f.write(f">r{n}\n{seq[st:st+150]}\n")
+        paths.append(path)
+    return paths
 
 
 def build_kernels(baseline_cu: str | None):
@@ -300,10 +349,13 @@ def run_pipeline(reads: str, prefix: str, device: str):
     wall = time.time() - t0
     if rc != 0:
         raise RuntimeError(f"pipeline returned {rc}")
+    return opt, _model_ploidy(prefix), wall
+
+
+def _model_ploidy(prefix: str) -> int:
     with open(prefix + "_model_result.txt") as f:
         last = f.read().strip().splitlines()[-1]
-    ploidy = int(float(last.rsplit(":", 1)[1]))
-    return opt, ploidy, wall
+    return int(float(last.rsplit(":", 1)[1]))
 
 
 def _same_to_6_digits(a: str, b: str) -> bool:
@@ -323,6 +375,25 @@ def _same_to_6_digits(a: str, b: str) -> bool:
     return True
 
 
+def check_golden_outputs(gold_dir: str, ploidy: int) -> str:
+    """The 12 tables under ./PloidyFrost_output byte-identical to
+    `gold_dir`, the model result equal to 6 significant digits, ploidy
+    2; returns how the model result compared."""
+    for name in GOLD_FILES:
+        with open(os.path.join("PloidyFrost_output", f"gold_{name}.txt"), "rb") as f1, \
+                open(os.path.join(gold_dir, f"gold_{name}.txt"), "rb") as f2:
+            if f1.read() != f2.read():
+                raise AssertionError(f"golden table {name} differs")
+    with open("gold_model_result.txt") as f1, \
+            open(os.path.join(gold_dir, "gold_model_result.txt")) as f2:
+        mine, gold = f1.read(), f2.read()
+    if not _same_to_6_digits(mine, gold):
+        raise AssertionError("gold_model_result.txt differs beyond 6 significant digits")
+    if ploidy != 2:
+        raise AssertionError(f"golden ploidy {ploidy} != 2")
+    return "byte-identical" if mine == gold else "equal to 6 significant digits"
+
+
 def golden(device: str, work: str):
     os.makedirs(work, exist_ok=True)
     os.chdir(work)
@@ -330,22 +401,196 @@ def golden(device: str, work: str):
     opt, ploidy, wall = run_pipeline("reads.fa", "gold", device)
     if (opt.coverage_lower, opt.coverage_upper) != (10, 37):
         raise AssertionError(f"cutoffs {(opt.coverage_lower, opt.coverage_upper)} != (10, 37)")
-    for name in GOLD_FILES:
-        with open(os.path.join("PloidyFrost_output", f"gold_{name}.txt"), "rb") as f1, \
-                open(os.path.join(GOLD, f"gold_{name}.txt"), "rb") as f2:
-            if f1.read() != f2.read():
-                raise AssertionError(f"golden table {name} differs")
-    with open("gold_model_result.txt") as f1, open(os.path.join(GOLD, "gold_model_result.txt")) as f2:
-        mine, gold = f1.read(), f2.read()
-    exact = mine == gold
-    if not _same_to_6_digits(mine, gold):
-        raise AssertionError("gold_model_result.txt differs beyond 6 significant digits")
-    if ploidy != 2:
-        raise AssertionError(f"golden ploidy {ploidy} != 2")
-    log(f"golden on {device}: 12 tables byte-identical, model "
-        f"{'byte-identical' if exact else 'equal to 6 significant digits'}, "
+    model = check_golden_outputs(GOLD, ploidy)
+    log(f"golden on {device}: 12 tables byte-identical, model {model}, "
         f"ploidy {ploidy}, cutoffs (10, 37), {wall:.2f} s")
     return opt
+
+
+def golden_colored(device: str, work: str):
+    """Phase 5: the multi_colored golden by the functions and `run -f`."""
+    from ploidyfrost_tpu_torch.cli import main as cli_main
+    from ploidyfrost_tpu_torch.graph.cdbg import CDBGraph
+    from ploidyfrost_tpu_torch.graph.colors import color_graph
+    from ploidyfrost_tpu_torch.graph.construct import build_graph_from_kmers, simplify
+    from ploidyfrost_tpu_torch.io.bfg import read_bfg_colors, write_bfg_colors
+    from ploidyfrost_tpu_torch.io.fastx import read_batches
+    from ploidyfrost_tpu_torch.kmer.count import KmerCounter
+    from ploidyfrost_tpu_torch.kmer.cutoffs import (
+        cutoff_lower_from_counts, cutoff_upper_from_counts)
+
+    os.makedirs(work, exist_ok=True)
+    os.chdir(work)
+    paths = make_sample_reads(".", 60_000)
+    t0 = time.time()
+    filtered, cutoffs = [], []
+    for i, p in enumerate(paths):
+        counter = KmerCounter(25, device=device)
+        for batch in read_batches([p], 25):
+            counter.add_reads(batch)
+        hist = counter.histogram(10000)
+        lower = max(10, cutoff_lower_from_counts(list(hist[1:])))
+        cutoffs.append((lower, cutoff_upper_from_counts(list(hist[1:]), 0.998)))
+        km, ct = counter.arrays()
+        np.savez(f"s{i}.kmers.npz", kmers=km, counts=ct, k=25)
+        filtered.append(km[ct >= lower])
+    if cutoffs != COLORED_CUTOFFS:
+        raise AssertionError(f"colored cutoffs {cutoffs} != {COLORED_CUTOFFS}")
+    g = simplify(build_graph_from_kmers(np.unique(np.concatenate(filtered)), 25), 25)
+    colors = color_graph(g, filtered, [f"s{i}.fa" for i in range(3)])
+    da = write_bfg_colors("ref.bfg_colors", g, colors)
+    g.write_gfa("ref.gfa", da_ids=da)
+    back = read_bfg_colors("ref.bfg_colors", CDBGraph.from_gfa("ref.gfa"))
+    if not (np.array_equal(back.bits, colors.bits) and np.array_equal(back.offsets, colors.offsets)):
+        raise AssertionError("the .bfg_colors round trip changed the color matrix")
+    with open("list.txt", "w") as f:
+        f.writelines(f"s{i}.kmers.npz\n" for i in range(3))
+    with open("cov.txt", "w") as f:
+        f.writelines(f"{lo}\t{up}\n" for lo, up in cutoffs)
+    dev_flag = f"--device={device}"
+    rc = cli_main(["-g", "ref.gfa", "-f", "ref.bfg_colors", "-d", "list.txt", "-C", "cov.txt",
+                   "-o", "gold", dev_flag])
+    if rc != 0:
+        raise RuntimeError(f"run -f returned {rc}")
+    fre = os.path.join("PloidyFrost_output", "gold_allele_frequency.txt")
+    if cli_main(["model", "-g", fre, "-o", "gold", dev_flag]) != 0:
+        raise RuntimeError("model failed on the colored golden")
+    ploidy = _model_ploidy("gold")
+    model = check_golden_outputs(GOLD_COLORED, ploidy)
+    log(f"colored golden on {device}: 12 tables byte-identical, model {model}, ploidy {ploidy}, "
+        f"cutoffs {cutoffs}, .bfg_colors round trip bit-equal, {time.time() - t0:.2f} s")
+
+
+def multi3x5m(device: str, work: str, genome_bp: int = 5_000_000, profile: bool = False) -> dict:
+    """Phase 6: `pipeline-multi` on three 5 Mbp samples. With `profile`
+    the run goes under cProfile (main thread; it slows the run) and the
+    40 entries with the largest cumulative time are printed."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    from ploidyfrost_tpu_torch.cli import Options
+    from ploidyfrost_tpu_torch.kmer import extract
+    from ploidyfrost_tpu_torch.pipeline import run_multisample_pipeline_cli
+
+    os.makedirs(work, exist_ok=True)
+    os.chdir(work)
+    t0 = time.time()
+    reads = make_sample_reads(".", genome_bp)
+    log(f"multi3x5m reads generated in {time.time() - t0:.1f} s")
+    opt = Options()
+    opt.outprefix = "multi"
+    opt.inputs = reads
+    torch.cuda.reset_peak_memory_stats()
+    extract.LAUNCHES = 0
+    prof = cProfile.Profile() if profile else None
+    t0 = time.time()
+    rc = prof.runcall(run_multisample_pipeline_cli, opt, device) if prof else \
+        run_multisample_pipeline_cli(opt, device)
+    wall = time.time() - t0
+    if prof:
+        pstats.Stats(prof).sort_stats("cumulative").print_stats(40)
+    launches = extract.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        raise RuntimeError(f"pipeline-multi returned {rc}")
+    if launches == 0:
+        raise AssertionError("multi3x5m never launched K1")
+    ploidy = _model_ploidy("multi")
+    if ploidy != 2:
+        raise AssertionError(f"multi3x5m ploidy {ploidy} != 2")
+    with open("multi_graph_info.txt") as f:
+        info = dict(kv.split(":") for kv in f.readline().split())
+    with open(os.path.join("PloidyFrost_output", "multi_super_bubble.txt")) as f:
+        bubbles = sum(1 for _ in f) - 1  # one header line
+    for stage, sec in opt.stage_seconds.items():
+        log(f"multi3x5m stage {stage}: {sec:.3f} s")
+    log(f"multi3x5m: pipeline-multi wall {wall:.3f} s, cutoffs {opt.coverage_vec}, "
+        f"ploidy {ploidy}, unitigs {info['nbUnitig']}, k-mers {info['nbKmer']}, "
+        f"colors {info['NbColors']}, bubbles {bubbles}, K1 launches {launches}, "
+        f"peak device memory {peak / 2**30:.3f} GiB")
+    return {"launches": launches, "wall": wall}
+
+
+def torch_programs(device: str, work: str, reads: str, table: str, lower: int):
+    """Phase 7: the device link sort and the device lookup on the card,
+    each against its host counterpart, on the bench5m k-mer table."""
+    import torch
+
+    from ploidyfrost_tpu_torch.cli import main as cli_main
+    from ploidyfrost_tpu_torch.graph import construct
+    from ploidyfrost_tpu_torch.kmer.countdb import KmerCountDB, lookup_device
+    from ploidyfrost_tpu_torch.kmer.extract_bench import spread
+    from ploidyfrost_tpu_torch.kmer.pack import revcomp_np
+
+    os.makedirs(work, exist_ok=True)
+    os.chdir(work)
+    dev = torch.device(device)
+    walls = {}
+    for name, flags in (("host", []), ("dev", ["--device-build"])):
+        t0 = time.time()
+        if cli_main(["build", "-k", "25", "-o", name, reads, f"--device={device}", *flags]) != 0:
+            raise RuntimeError(f"build {flags} failed")
+        walls[name] = time.time() - t0
+    with open("host.gfa", "rb") as f1, open("dev.gfa", "rb") as f2:
+        if f1.read() != f2.read():
+            raise AssertionError("build --device-build wrote a different GFA")
+    z = np.load(table)
+    km_all, ct_all = z["kmers"], z["counts"]
+    km = km_all[ct_all >= lower]
+    rc = construct._revcomp_np(km, 25)
+    link = {"host": [], "dev": []}
+    ref = None
+    for side in ("host", "dev", "dev", "host", "host", "dev"):
+        t0 = time.time()
+        if side == "host":
+            nxt = construct._links_junctions_fast(km, rc, 25)
+        else:
+            nxt = construct._links_junctions_device(km, rc, 25, dev)
+        link[side].append(time.time() - t0)
+        if ref is None:
+            ref = nxt
+        elif not np.array_equal(ref, nxt):
+            raise AssertionError("the device link step differs from the host link step")
+    log(f"phase 7a: build of the bench5m reads with and without --device-build: GFA "
+        f"byte-identical ({os.path.getsize('host.gfa')} bytes), build wall host "
+        f"{walls['host']:.3f} s, device {walls['dev']:.3f} s; link step alone on "
+        f"{len(km)} k-mers ({2 * len(km)} stubs), links equal, median [min, max] of 3: "
+        "host radix {:.3f} s [{:.3f}, {:.3f}], ".format(*spread(link["host"]))
+        + "torch on the card with both copies {:.3f} s [{:.3f}, {:.3f}]".format(
+            *spread(link["dev"])))
+
+    rng = np.random.default_rng(3)
+    nq = 10_000_000
+    q = km_all[rng.integers(0, len(km_all), nq)]
+    q[nq // 2:] = revcomp_np(q[nq // 2:], 25)
+    absent = rng.random(nq) < 0.1
+    q[absent] = rng.integers(0, 1 << 50, int(absent.sum()), dtype=np.uint64)
+    db = KmerCountDB(km_all, ct_all, 25)
+    host_s, dev_s, dev_ms = [], [], []
+    t_km = torch.from_numpy(km_all.view(np.int64)).to(dev)
+    t_ct = torch.from_numpy(ct_all).to(dev)
+    for _ in range(3):
+        t0 = time.time()
+        h_counts, h_hit = db.lookup(q)
+        host_s.append(time.time() - t0)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        t_q = torch.from_numpy(q.view(np.int64)).to(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        d_counts, d_hit = lookup_device(t_km, t_ct, t_q, 25)
+        end.record()
+        d_counts, d_hit = d_counts.cpu().numpy(), d_hit.cpu().numpy()
+        dev_s.append(time.time() - t0)
+        dev_ms.append(start.elapsed_time(end))
+        if not (np.array_equal(h_counts, d_counts) and np.array_equal(h_hit, d_hit)):
+            raise AssertionError("lookup_device differs from KmerCountDB.lookup")
+    log(f"phase 7b: lookup_device equal to KmerCountDB.lookup on {nq} queries against "
+        f"{len(km_all)} keys ({int(h_hit.sum())} hits), medians of 3: host native lookup "
+        f"{spread(host_s)[0]:.3f} s, on the card {spread(dev_ms)[0]:.2f} ms, "
+        f"{spread(dev_s)[0]:.3f} s with the queries' and the results' copies")
 
 
 def main() -> int:
@@ -354,6 +599,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke test of ploidyfrost_tpu_torch on one GPU.")
     ap.add_argument("--baseline-cu", help="an earlier K1 source, C ABI pf_extract_canonical"
                     "(codes, B, L, k, out, stream), to build and time beside K1 in this call")
+    ap.add_argument("--profile-multi", action="store_true",
+                    help="run multi3x5m under cProfile and print its 40 largest entries")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -384,8 +631,9 @@ def main() -> int:
     libs = native_libraries()
     log("native host libraries: " + ", ".join(
         f"{name} {'loaded' if ok else 'NOT loaded'}" for name, ok in libs.items()))
-    if not libs["construct"]:
-        raise AssertionError("the graph-construction library did not load")
+    if not all(libs.values()):
+        raise AssertionError("a native host library did not load: "
+                             + ", ".join(name for name, ok in libs.items() if not ok))
     bench = os.path.join(WORK, "bench5m")
     os.makedirs(bench)
     os.chdir(bench)
@@ -428,6 +676,22 @@ def main() -> int:
         raise AssertionError(f"a counter batch ran {kernels_seen}, not K1 alone")
     log("phase 4: bench5m passed")
 
+    extract.LAUNCHES = 0
+    golden_colored("cuda", os.path.join(WORK, "golden_colored"))
+    if extract.LAUNCHES == 0:
+        raise AssertionError("the colored golden never launched K1")
+    log(f"phase 5: colored golden passed, K1 launches {extract.LAUNCHES}")
+
+    multi = multi3x5m("cuda", os.path.join(WORK, "multi3x5m"), profile=args.profile_multi)
+    log("phase 6: multi3x5m passed")
+
+    torch_programs("cuda", os.path.join(WORK, "programs"),
+                   os.path.join(bench, "bench5m_reads.fa"),
+                   os.path.join(bench, "bench5m.kmers.npz"), opt.coverage_lower)
+    log("phase 7: device link sort and device lookup passed")
+    if "jax" in sys.modules or "ploidyfrost_tpu" in sys.modules:
+        raise AssertionError("the port pulled in jax or ploidyfrost_tpu")
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=30,
@@ -440,6 +704,7 @@ def main() -> int:
         "source": "ploidyfrost_tpu_torch/csrc/extract_canonical.cu",
         "replaces": "ploidyfrost_tpu/kmer/pallas_extract.py:88",
         "launches": launches,
+        "launches_multi3x5m": multi["launches"],
         "max_abs_err": float(err),
         "ms": ms,
         "plain_ms": t["plain_ms"],

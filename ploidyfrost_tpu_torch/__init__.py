@@ -1,13 +1,16 @@
 """ploidyfrost_tpu_torch — the PyTorch/CUDA port of the JAX package
 (ploidyfrost_tpu/).
 
-The single-sample pipeline (reads -> k-mer counting -> cutoffs ->
-compacted de Bruijn graph -> superbubbles -> branch alignment -> sites
--> GMM-EM ploidy call) on an NVIDIA GPU. Canonical k-mer extraction is
-a hand-written CUDA kernel (csrc/extract_canonical.cu); the counter's
-sort-collapse, the superbubble search and the EM loop are torch ops on
-the chosen device; graph construction, alignment and table output are
-host code (numpy and native C++).
+The single-sample and the multi-sample (colored) pipeline (reads ->
+k-mer counting -> cutoffs -> compacted, optionally colored, de Bruijn
+graph -> superbubbles -> branch alignment -> sites -> GMM-EM ploidy
+call) on an NVIDIA GPU, with their stage subcommands and the KMC and
+Bifrost file formats. Canonical k-mer extraction is a hand-written CUDA
+kernel (csrc/extract_canonical.cu); the counter's sort-collapse, the
+superbubble search, the EM loop and, on request, the link sort of graph
+construction are torch ops on the chosen device; graph construction,
+coloring, alignment and table output are host code (numpy and native
+C++).
 
 This package never imports jax or the JAX package. Entry points take a
 ``device`` argument (default ``"cuda"``) and raise when CUDA is asked

@@ -123,6 +123,19 @@ class CDBGraph:
         # src/CDBG.cpp:121-143)
         self.ids = np.arange(1, self.n + 1, dtype=np.int64)
         self._build_adjacency()
+        self._kmer_pos_index = None
+
+    def kmer_pos_index(self):
+        """Cached canonical-k-mer -> (unitig, position) index
+        (graph/colors.KmerPosIndex). The graph is immutable after
+        construction, so this is built once per graph — the analog of
+        Bifrost's minimizer index, which exists from graph LOAD time
+        (bifrost/src/CompactedDBG.tcc:629-652), not per analysis pass."""
+        if self._kmer_pos_index is None:
+            from .colors import KmerPosIndex
+
+            self._kmer_pos_index = KmerPosIndex(self)
+        return self._kmer_pos_index
 
     # -- adjacency -------------------------------------------------------
 

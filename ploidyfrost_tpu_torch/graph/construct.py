@@ -1,4 +1,4 @@
-# Copied from ploidyfrost_tpu/graph/construct.py; imports point at this package.
+# Copied from ploidyfrost_tpu/graph/construct.py; imports point at this package, the device link step is torch.
 """Native compacted-DBG construction from a k-mer table.
 
 Replaces Bifrost's build path (CompactedDBG::{filter,construct,
@@ -369,6 +369,90 @@ def _links_junctions_fast(
     return nxt
 
 
+def device_link_step(jc, pol, pal):
+    """Core of the device linking path on tensors of one device: a
+    stable sort of the 2n junction keys `jc` (int64), pair detection
+    with shifted comparisons, and a scatter back to node order.
+
+    pol[i]: stub i's junction is in its canonical orientation; pal[i]:
+    the junction is its own reverse complement. Returns nxt [2n] int64:
+    the partner node of every stub, -1 where the junction's run is not
+    exactly one stub of each polarity (or holds a palindrome, or pairs
+    a k-mer with itself)."""
+    import torch
+
+    N = jc.shape[0]
+    js, idx_o = torch.sort(jc, stable=True)
+    pol_o = pol[idx_o]
+    pal_o = pal[idx_o]
+    # the rolls wrap around at the ends; first/nxt1/nxt2 are set at the
+    # ends so that no wrapped value is ever used
+    first = torch.ones(N, dtype=torch.bool, device=jc.device)
+    first[1:] = js[1:] != js[:-1]
+    nxt1 = torch.ones_like(first)
+    nxt1[:-1] = first[1:]
+    nxt2 = torch.ones_like(first)
+    nxt2[:-2] = first[2:]
+    pol_n = torch.roll(pol_o, -1)
+    pal_n = torch.roll(pal_o, -1)
+    idx_n = torch.roll(idx_o, -1)
+    pair_start = (
+        first
+        & ~nxt1
+        & nxt2
+        & (pol_o != pol_n)
+        & ~pal_o
+        & ~pal_n
+        & ((idx_o >> 1) != (idx_n >> 1))  # not_self
+    )
+    pair_second = torch.zeros_like(first)
+    pair_second[1:] = pair_start[:-1]
+    val = torch.where(
+        pair_start,
+        idx_n ^ 1,
+        torch.where(pair_second, torch.roll(idx_o, 1) ^ 1, -1),
+    )
+    # back to node order: idx_o is a permutation, so this is a scatter
+    nxt = torch.empty_like(val)
+    nxt[idx_o] = val
+    return nxt
+
+
+def _links_junctions_device(
+    km: np.ndarray, rc: np.ndarray, k: int, device
+) -> np.ndarray:
+    """_links_junctions with the junction keys, their sort and the pair
+    detection on `device` (the `--device-build` path): identical
+    semantics, the same junction keys, the same exactly-one-stub-per-
+    polarity pairing, the same palindromic-probe fallback on the host.
+    Junction keys are (k-1)-mers, below 2^60 for k <= 31, so they are
+    int64 on the device."""
+    import torch
+
+    from ..kmer.pack import revcomp_kmers
+
+    n = len(km)
+    if n == 0:
+        return np.full(0, -1, dtype=np.int64)
+    dev = torch.device(device)
+    mask_j = (1 << (2 * (k - 1))) - 1
+    both = np.stack(
+        [np.ascontiguousarray(km, dtype=np.uint64), np.ascontiguousarray(rc, dtype=np.uint64)],
+        axis=1,
+    )
+    # [n, 2] row-major = stubs interleaved: node 2i is km[i], 2i+1 rc[i]
+    suf = torch.from_numpy(both.view(np.int64)).to(dev).reshape(-1) & mask_j
+    suf_rc = revcomp_kmers(suf, k - 1)
+    jc = torch.minimum(suf, suf_rc)
+    pal = suf == suf_rc
+    nxt_node = device_link_step(jc, suf == jc, pal).cpu().numpy()
+    if bool(pal.any()):
+        # every stub of a run that holds a palindrome goes to the probes
+        pal_nodes = torch.isin(jc, jc[pal]).nonzero().reshape(-1).cpu().numpy()
+        _apply_pal_fallback(km, rc, k, nxt_node, pal_nodes)
+    return nxt_node
+
+
 def _rank_chains_fast(nxt_node: np.ndarray):
     """(order, chain_start) via the native O(n) walk
     (native/chain_rank.cpp) when available, else the numpy
@@ -401,15 +485,23 @@ def _rank_chains_fast(nxt_node: np.ndarray):
     return order, chain_start
 
 
-def build_graph_from_kmers(kmers: np.ndarray, k: int) -> CDBGraph:
-    """Compact a sorted distinct canonical k-mer set into unitigs."""
+def build_graph_from_kmers(
+    kmers: np.ndarray, k: int, link_device=None
+) -> CDBGraph:
+    """Compact a sorted distinct canonical k-mer set into unitigs.
+    `link_device` (a torch.device) moves the junction sort of the link
+    step there (_links_junctions_device); None keeps it in the native
+    host kernel. The graph is the same either way."""
     km = np.asarray(kmers, dtype=np.uint64)
     n = len(km)
     if n == 0:
         return CDBGraph([], k)
     rc = _revcomp_np(km, k)
 
-    nxt_node = _links_junctions_fast(km, rc, k)
+    if link_device is not None:
+        nxt_node = _links_junctions_device(km, rc, k, link_device)
+    else:
+        nxt_node = _links_junctions_fast(km, rc, k)
     order, chain_start = _rank_chains_fast(nxt_node)
     starts = np.flatnonzero(chain_start)
     ends = np.append(starts[1:], len(order))
@@ -731,3 +823,21 @@ def _simplify_rebuild(g: CDBGraph, k: int, drop: np.ndarray) -> CDBGraph:
         return CDBGraph([], k)
     allkm = np.unique(_canon_np(kept, k))
     return build_graph_from_kmers(allkm, k)
+
+
+def build_graph_from_reads(
+    paths, k: int, min_count: int = 1, device="cuda", link_device=None
+):
+    """Count reads, threshold, compact, simplify. Returns (graph, counter)."""
+    from ..io.fastx import read_batches
+    from ..kmer.count import KmerCounter
+
+    counter = KmerCounter(k, device=device)
+    for batch in read_batches(paths, k):
+        counter.add_reads(batch)
+    km, ct = counter.arrays()
+    if min_count > 1:
+        km = km[ct >= min_count]
+    g = build_graph_from_kmers(km, k, link_device=link_device)
+    g = simplify(g, k)
+    return g, counter

@@ -1,4 +1,4 @@
-# Ported from ploidyfrost_tpu/kmer/countdb.py: the host probe path only.
+# Ported from ploidyfrost_tpu/kmer/countdb.py: host probes copied, the device lookup in torch.
 """Batched random-access k-mer count lookups (replaces KMC kmc_api).
 
 The reference probes its on-disk KMC database one k-mer at a time:
@@ -59,6 +59,45 @@ def _fused_native_lookup(index, q, counts_2d, C, transpose=False):
         ctypes.c_int32(1 if transpose else 0),
     )
     return out, hit.astype(bool)
+
+
+def lookup_device(table_km, table_ct, queries, k: int):
+    """Device counterpart of KmerCountDB.lookup on int64 tensors.
+
+    table_km: sorted canonical k-mers [n] int64, table_ct: their counts
+    [n] int64, queries: packed k-mers of either strand, any shape, all
+    on one device. Returns (counts int64, hit bool) shaped like
+    `queries`; a miss has count 0. Nothing on the pipeline path calls
+    this (its probes start and end on the host, see KmerCountDB.lookup);
+    it serves callers whose queries already live on the device.
+    """
+    import torch
+
+    from .pack import canonical_kmers
+
+    canon = canonical_kmers(queries, k)
+    n = table_km.shape[0]
+    if n == 0:
+        return torch.zeros_like(canon), torch.zeros_like(canon, dtype=torch.bool)
+    idx = torch.searchsorted(table_km, canon).clamp_(max=n - 1)
+    hit = table_km[idx] == canon
+    counts = torch.where(hit, table_ct[idx], 0)
+    return counts, hit
+
+
+def sorted_union(arrays) -> np.ndarray:
+    """Sorted distinct union of uint64 key arrays: one sort of the
+    concatenation and an adjacent-difference pass, the result of
+    np.unique. np.unique itself hashes integer keys in recent numpy
+    versions and then takes seconds for ten million of them."""
+    cat = np.concatenate([np.asarray(a, dtype=np.uint64) for a in arrays])
+    cat.sort()
+    if len(cat) < 2:
+        return cat
+    keep = np.empty(len(cat), dtype=bool)
+    keep[0] = True
+    np.not_equal(cat[1:], cat[:-1], out=keep[1:])
+    return cat[keep]
 
 
 class SortedU64Index:
@@ -134,15 +173,13 @@ class KmerCountDB:
     def _make_lut(self):
         if self._lut is None:
             # adaptive prefix width: larger tables get more buckets
-            # (up to 2^22), shrinking the per-bucket binary search —
-            # measured 349 -> 197 ns/query at 6M keys
+            # (up to 2^22), shrinking the per-bucket binary search
             bits = min(22, max(16, max(self._n, 1).bit_length()))
             bits = min(bits, 2 * self.k)
             shift = 2 * self.k - bits
             nb = 1 << bits
-            # O(n) construction: bucket counts + cumsum (the former
-            # per-bound searchsorted cost ~2 s per fresh DB at 6M keys
-            # and ran once per bench rep). Real keys only — the pad
+            # O(n) construction: bucket counts + cumsum, not one
+            # searchsorted per bucket bound. Real keys only — the pad
             # sentinels stay outside every bucket, which is fine: no
             # canonical query (< 2^2k) ever probes past lut[nb] = n.
             cnt = np.bincount(
@@ -212,3 +249,72 @@ class KmerCountDB:
             out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
         )
         return out
+
+
+class MultiColorCountDB:
+    """Fused multi-database probe table for the colored path.
+
+    The colored coverage passes (sites/emit_colored.py) probe the SAME
+    query k-mers against every color's database; per-color lookups
+    repeat the canonicalization and the latency-bound binary probes C
+    times over. This table unions the keys once (sequencing replicates
+    share almost all k-mers) and answers every color with ONE search
+    plus a [n, C] gather.
+    """
+
+    def __init__(self, dbs: list[KmerCountDB]):
+        assert dbs
+        self.k = dbs[0].k
+        self.C = len(dbs)
+        keys = [d._km_np[: len(d)] for d in dbs]
+        if all(
+            len(km) == len(keys[0]) and np.array_equal(km, keys[0])
+            for km in keys[1:]
+        ):
+            union = keys[0]
+            counts = np.stack(
+                [d._ct_np[: len(d)] for d in dbs], axis=1
+            )
+        else:
+            union = sorted_union(keys)
+            counts = np.zeros((len(union), self.C), dtype=np.int64)
+            for c, d in enumerate(dbs):
+                pos = np.searchsorted(union, keys[c])
+                counts[pos, c] = d._ct_np[: len(d)]
+        # reuse KmerCountDB's padded table + native bucketed search
+        self._index = KmerCountDB(
+            union, np.zeros(len(union), np.int64), self.k
+        )
+        self._counts = counts
+
+    def lookup(self, queries):
+        """(counts [n, C] int64, hit [n] bool) — one canonicalization,
+        one search, C gathers."""
+        counts_t, hit = self.lookup_t(queries)
+        return counts_t.T, hit
+
+    def lookup_t(self, queries):
+        """(counts [C, n] int64, hit [n] bool) — transposed layout:
+        each color's counts are CONTIGUOUS, which is what the reduceat
+        passes in sites/emit_colored.py consume."""
+        from .pack import canonical_np
+
+        q = np.asarray(queries, dtype=np.uint64).ravel()
+        if len(q) == 0 or len(self._counts) == 0:
+            return (
+                np.zeros((self.C, len(q)), np.int64),
+                np.zeros(len(q), bool),
+            )
+        fused = _fused_native_lookup(
+            self._index, q, self._counts, self.C, transpose=True
+        )
+        if fused is not None:
+            return fused
+        canon = canonical_np(q, self.k)
+        idx = self._index._search(canon)
+        np.clip(idx, 0, max(len(self._index) - 1, 0), out=idx)
+        hit = self._index._km_np[idx] == canon
+        counts = np.where(
+            hit[:, None], self._counts[np.minimum(idx, len(self._counts) - 1)], 0
+        )
+        return np.ascontiguousarray(counts.T), hit

@@ -1,13 +1,17 @@
-# Ported from ploidyfrost_tpu/pipeline.py: the single-sample path.
-"""End-to-end analysis drivers: the `run` and `pipeline` subcommands.
+# Ported from ploidyfrost_tpu/pipeline.py.
+"""End-to-end analysis entry points: the `run`, `build`, `pipeline` and
+`pipeline-multi` subcommands.
 
 `run_analysis` replaces the reference main path (src/Main.cpp:817-853):
 load graph -> setUnitigId -> printInfo -> findSuperBubble ->
-ploidyEstimation. `run_pipeline_cli` runs the whole single-sample
-pipeline (the reference's script/pipeline/run.sh): reads -> count ->
-cutoffs -> graph -> `run_analysis` -> model.
+ploidyEstimation; `run_colored_analysis` is its multi-sample (colored)
+counterpart (src/Main.cpp:777-813). `run_pipeline_cli` runs the whole
+single-sample pipeline (the reference's script/pipeline/run.sh): reads
+-> count -> cutoffs -> graph -> `run_analysis` -> model;
+`run_multisample_pipeline_cli` does the same for several samples
+(script/pipeline/run-multisample.sh) over one colored graph.
 
-Both take `device` ("cuda" by default; raises when CUDA is absent, see
+All take `device` ("cuda" by default; raises when CUDA is absent, see
 resolve_device). On it run the k-mer extraction kernel, the counter's
 sort-collapse and histogram, the superbubble search and the GMM-EM fit;
 graph construction, coverage probes, alignment and table output are
@@ -30,7 +34,8 @@ def _log(msg: str):
 
 
 def load_count_db(path: str, k: int):
-    """Load a k-mer count table written by `pipeline` (.npz)."""
+    """Load a k-mer count table: our .npz (from `count`) or a KMC
+    database prefix (.kmc_pre/.kmc_suf, io/kmc.py)."""
     from .kmer.countdb import KmerCountDB
 
     if path.endswith(".npz") and os.path.exists(path):
@@ -42,6 +47,14 @@ def load_count_db(path: str, k: int):
         return KmerCountDB(z["kmers"], z["counts"], k)
     if os.path.exists(path + ".npz"):
         return load_count_db(path + ".npz", k)
+    if os.path.exists(path + ".kmc_pre") or path.endswith(".kmc_pre"):
+        from .io.kmc import read_kmc_db
+
+        prefix = path[: -len(".kmc_pre")] if path.endswith(".kmc_pre") else path
+        km, ct, kk = read_kmc_db(prefix)
+        if kk != k:
+            raise SystemExit(f"Error: KMC database k={kk} != graph k={k}")
+        return KmerCountDB(km, ct, k)
     raise SystemExit(f"Error: Please input the correct kmc database path: {path}")
 
 
@@ -107,6 +120,153 @@ def window_coverage(db, strings: list[str], lower: int, upper: int):
     for i, s in enumerate(uniq):
         out[s] = (float(mean[i]), bool(ok[i]))
     return out
+
+
+def load_color_matrix(path: str, g):
+    """Load unitig colors: our .colors.npz (packed bit matrix) or a
+    Bifrost .bfg_colors binary (io/bfg.py reader)."""
+    from .graph.colors import ColorMatrix
+
+    if path.endswith(".npz"):
+        z = np.load(path, allow_pickle=False)
+        bits = np.unpackbits(z["bits"], axis=0)[: int(z["rows"])].astype(bool)
+        names = [str(n) for n in z["names"]]
+        offsets = z["offsets"]
+        return ColorMatrix(offsets, bits, names)
+    from .io.bfg import read_bfg_colors
+
+    return read_bfg_colors(path, g)
+
+
+def save_color_matrix(path: str, colors) -> None:
+    np.savez(
+        path,
+        bits=np.packbits(colors.bits.astype(np.uint8), axis=0),
+        rows=colors.bits.shape[0],
+        offsets=colors.offsets,
+        names=np.array(colors.names),
+    )
+
+
+def write_graph_info_colored(g, colors, outpre: str, verbose: bool):
+    """CCDBG::printInfo (src/CCDBG.cpp:2022-2053): graph info plus
+    NbColors and one color name per line."""
+    lines = (
+        f"k:{g.k}\tg:{g.g}\tNbColors:{colors.n_colors}\t"
+        f"nbKmer:{g.nb_kmers()}\tnbUnitig:{len(g)}\tlength:{g.total_length()}\n"
+        + "".join(c + "\n" for c in colors.names)
+    )
+    if verbose:
+        _log(">>>>>>>>>Graph Information>>>>>>>>>")
+        print(lines, end="")
+        _log(">>>>>>>>>>>>>>>>>>>>>>>>>>>>>>>>>>>")
+    with open(outpre + "_graph_info.txt", "w") as f:
+        f.write(lines)
+
+
+def run_colored_analysis(opt, device="cuda") -> int:
+    """The colored main run (src/Main.cpp:777-813): ColoredCDBG read,
+    per-color KMC database open, setUnitigId, findSuperBubble,
+    colored ploidyEstimation."""
+    dev = resolve_device(device)
+    from .bubble.batched import find_superbubbles_device as find_superbubbles
+    from .bubble.superbubble import write_superbubble_file
+    from .graph.cdbg import CDBGraph
+    from .sites.emit_colored import (
+        analyze_bubbles_colored,
+        unitig_coverage_colored,
+        window_coverage_colored,
+        write_outputs_colored,
+    )
+
+    times = opt.stage_seconds
+    t0 = time.time()
+    _log(f"Loading colored graph from {opt.graphfile} + {opt.colorfile}")
+    g = CDBGraph.from_gfa(opt.graphfile)
+    colors = load_color_matrix(opt.colorfile, g)
+
+    # one count database per color, listed one prefix per line in opt.db
+    # (src/CCDBG.cpp:11-88)
+    dbs = []
+    with open(opt.db) as f:
+        for line in f:
+            name = line.rstrip("\n")
+            if name:
+                dbs.append(load_count_db(name, g.k))
+                _log(f"CCDBG::CCDBG(): database {name} initialized")
+    times["load_graph"] = time.time() - t0
+    _log(f"CCDBG: Graph loading Real time : {times['load_graph']}s")
+    if len(dbs) != colors.n_colors:
+        raise SystemExit(
+            f"Error: {len(dbs)} databases != {colors.n_colors} colors"
+        )
+    cutoffs = list(opt.coverage_vec)
+    if len(cutoffs) != len(dbs):
+        raise SystemExit(
+            f"Error: {len(cutoffs)} coverage cutoffs != {len(dbs)} databases"
+        )
+    for i, (lo, up) in enumerate(cutoffs):
+        _log(f"CCDBG:: Database {i} Minimum Coverage:{lo}")
+        _log(f"CCDBG:: Maximum Coverage:{up}")
+
+    os.makedirs("PloidyFrost_output", exist_ok=True)
+    g.set_unitig_id(opt.outprefix)
+    write_graph_info_colored(g, colors, opt.outprefix, opt.verbose)
+
+    # overlap host coverage probes + corpus decode with the device
+    # search (same latency-hiding as run_analysis; the reference
+    # interleaves readCovUni with the walk across pthreads,
+    # src/CCDBG.cpp:583-1449)
+    from concurrent.futures import ThreadPoolExecutor
+
+    def _cov_and_decode():
+        out = unitig_coverage_colored(dbs, g, cutoffs)
+        g.seqs.materialize()
+        return out
+
+    pool = ThreadPoolExecutor(max_workers=1)
+    cov_future = pool.submit(_cov_and_decode)
+
+    _log("CCDBG::findSuperBubble(): Finding superbubbles")
+    t0 = time.time()
+    try:
+        state, bubbles = find_superbubbles(g, opt.complex_size, colors, device=dev)
+        write_superbubble_file(g, bubbles, opt.outprefix)
+        times["superbubbles"] = time.time() - t0
+        _log(f"CCDBG::findSuperBubble(): Real time : {times['superbubbles']}s")
+        _log(f"CCDBG::findSuperBubble(): {len(bubbles)}  SuperBubbles Found")
+        # reference parity: check_ProgramOptions FORCES bubble=true and p
+        # defaults true with no way to unset, so a run always continues to
+        # ploidyEstimation; -b is accepted but changes nothing
+        # (src/Main.cpp:463, 92-120, 836-850)
+
+        _log(
+            "CCDBG::PloidyEstimation():  Analyzing superbubbles to generate sites' information"
+        )
+        t0 = time.time()
+        umean, uok = cov_future.result()
+    finally:
+        pool.shutdown()
+    emissions, window_strings, window_colors = analyze_bubbles_colored(
+        g, colors, state, umean, uok, opt.match, opt.mismatch, opt.gap
+    )
+    wcov = window_coverage_colored(dbs, window_strings, cutoffs)
+    stats = write_outputs_colored(
+        emissions, wcov, window_colors, colors.n_colors, opt.outprefix
+    )
+    times["sites"] = time.time() - t0
+    _log(f"CCDBG::PloidyEstimation(): Real time : {times['sites']}s")
+    a = stats["allele"]
+    _log(
+        "CCDBG::PloidyEstimation(): Alleles in SuperBubbles  :\t"
+        f"2 :{a[0]}\t3 :{a[1]}\t4 :{a[2]}\t5 :{a[3]}"
+    )
+    if stats["core_num"]:
+        _log(
+            "CCDBG::PloidyEstimation(): Sites' Average Coverage:"
+            f"{stats['core_cov'] // stats['core_num']}"
+        )
+    return 0
 
 
 def run_analysis(opt, device="cuda") -> int:
@@ -205,13 +365,191 @@ def run_analysis(opt, device="cuda") -> int:
     return 0
 
 
+def count_sample(files, k: int, dev, trim=None):
+    """Count one sample's reads on `dev`. Returns (counter, seconds
+    spent waiting for the reader)."""
+    from .io.fastx import read_batches
+    from .kmer.count import KmerCounter
+
+    t_read = 0.0
+    counter = KmerCounter(k, device=dev)
+    batches = read_batches(files, k, trim=trim)
+    while True:
+        tr = time.time()
+        batch = next(batches, None)
+        t_read += time.time() - tr
+        if batch is None:
+            break
+        counter.add_reads(batch)
+    return counter, t_read
+
+
+def _link_device(opt, dev):
+    """The device of the graph-construction link step: `dev` under
+    --device-build, else None (the native host kernel)."""
+    return dev if opt.device_build else None
+
+
+def build_graph_cli(opt, device="cuda") -> int:
+    """Native compacted-DBG construction from reads (replaces
+    `Bifrost build -i -d -k`, script/pipeline/4.bifrost:4)."""
+    dev = resolve_device(device)
+    from .graph.construct import build_graph_from_reads
+
+    if not opt.inputs:
+        print("Error: no input reads", file=sys.stderr)
+        return 1
+    t0 = time.time()
+    g, counter = build_graph_from_reads(
+        opt.inputs,
+        opt.k,
+        min_count=max(1, opt.coverage_lower if opt.hist else 1),
+        device=dev,
+        link_device=_link_device(opt, dev),
+    )
+    _log(
+        f"build: {len(g)} unitigs, {g.nb_kmers()} kmers, "
+        f"{g.total_length()} bp in {time.time() - t0:.1f}s"
+    )
+    g.write_gfa(opt.outprefix + ".gfa")
+    return 0
+
+
+def build_colored_graph_cli(opt, device="cuda") -> int:
+    """Native COLORED compacted-DBG construction (replaces
+    `Bifrost build -i -d -k 25 -c`, script/pipeline/run-multisample.sh).
+    Each positional argument is one sample (comma-separated files);
+    writes {outprefix}.gfa + {outprefix}.colors.npz."""
+    dev = resolve_device(device)
+    from .graph.colors import color_graph
+    from .graph.construct import build_graph_from_kmers, simplify
+    from .kmer.countdb import sorted_union
+
+    if not opt.inputs:
+        print("Error: no input samples", file=sys.stderr)
+        return 1
+    t0 = time.time()
+    sample_kmers = []
+    names = []
+    for sample in opt.inputs:
+        files = sample.split(",")
+        counter, _ = count_sample(files, opt.k, dev)
+        sample_kmers.append(counter.arrays()[0])
+        names.append(files[0])
+    g = simplify(
+        build_graph_from_kmers(
+            sorted_union(sample_kmers), opt.k, link_device=_link_device(opt, dev)
+        ),
+        opt.k,
+    )
+    colors = color_graph(g, sample_kmers, names)
+    _log(
+        f"build -c: {len(g)} unitigs, {g.nb_kmers()} kmers, "
+        f"{colors.n_colors} colors in {time.time() - t0:.1f}s"
+    )
+    g.write_gfa(opt.outprefix + ".gfa")
+    save_color_matrix(opt.outprefix + ".colors.npz", colors)
+    return 0
+
+
+def run_multisample_pipeline_cli(opt, device="cuda") -> int:
+    """Native end-to-end multi-sample run (replaces
+    script/pipeline/run-multisample.sh): per-sample count + cutoffs ->
+    masked k-mer union -> colored graph -> colored analysis -> model.
+    Every stage boundary is a durable artifact. Stage wall times land
+    in `opt.stage_seconds`: `read` and `count` summed over the samples,
+    `build_graph` (table fetch and save of every sample, union, graph,
+    coloring, output) and inside it `color_graph` alone."""
+    dev = resolve_device(device)
+    from .graph.colors import color_graph
+    from .graph.construct import build_graph_from_kmers, simplify
+    from .kmer.countdb import sorted_union
+    from .kmer.cutoffs import cutoff_lower_from_counts, cutoff_upper_from_counts
+    from .model.gmm import run_model
+
+    if not opt.inputs:
+        print("Error: no input samples", file=sys.stderr)
+        return 1
+    times = opt.stage_seconds
+    times["read"] = times["count"] = times["build_graph"] = 0.0
+    pre = opt.outprefix
+    filtered = []
+    names = []
+    cutoffs = []
+    db_list_path = pre + ".kmc_list.txt"
+    with open(db_list_path, "w") as dblist, open(
+        pre + ".coverage_cutoff.txt", "w"
+    ) as covfile:
+        for i, sample in enumerate(opt.inputs):
+            files = sample.split(",")
+            t0 = time.time()
+            counter, t_read = count_sample(
+                files, opt.k, dev, trim=opt.trim
+            )
+            counter.write_histogram(f"{pre}.s{i}.hist.txt")
+            hist = counter.histogram(10000)
+            times["read"] += t_read
+            times["count"] += time.time() - t0 - t_read
+            t0 = time.time()
+            lower = max(10, cutoff_lower_from_counts(list(hist[1:])))
+            upper = cutoff_upper_from_counts(list(hist[1:]), opt.frequency)
+            _log(f"pipeline-multi: sample {i} cutoffs L={lower} U={upper}")
+            km, ct = counter.arrays()
+            del counter  # frees the sample's device table and buffer
+            np.savez(f"{pre}.s{i}.kmers.npz", kmers=km, counts=ct, k=opt.k)
+            dblist.write(f"{pre}.s{i}.kmers.npz\n")
+            covfile.write(f"{lower}\t{upper}\n")
+            cutoffs.append((lower, upper))
+            # per-sample masking: keep k-mers with count >= lower
+            # (kmc_tools filter -ci<lower>, script/pipeline/3.filter)
+            filtered.append(km[ct >= lower])
+            names.append(files[0])
+            times["build_graph"] += time.time() - t0
+    t0 = time.time()
+    g = simplify(
+        build_graph_from_kmers(
+            sorted_union(filtered), opt.k, link_device=_link_device(opt, dev)
+        ),
+        opt.k,
+    )
+    tc = time.time()
+    colors = color_graph(g, filtered, names)
+    times["color_graph"] = time.time() - tc
+    g.write_gfa(pre + ".gfa")
+    save_color_matrix(pre + ".colors.npz", colors)
+    times["build_graph"] += time.time() - t0
+    opt.graphfile = pre + ".gfa"
+    opt.colorfile = pre + ".colors.npz"
+    opt.db = db_list_path
+    opt.coverage_vec = cutoffs
+    rc = run_colored_analysis(opt, dev)
+    if rc:
+        return rc
+    t0 = time.time()
+    ploidy = run_model(
+        pre,
+        fre_file=os.path.join(
+            "PloidyFrost_output", pre + "_allele_frequency.txt"
+        ),
+        gauss_lower=1,
+        gauss_upper=9,
+        frequency=0.0,
+        max_iter=1000,
+        delta=opt.delta,
+        m_threshold=opt.mthreshold,
+        n_threshold=opt.nthreshold,
+        device=dev,
+    )
+    times["model"] = time.time() - t0
+    _log(f"estimated ploidy level is : {int(ploidy)}")
+    return 0
+
+
 def run_pipeline_cli(opt, device="cuda") -> int:
     """reads -> count -> graph -> bubbles -> variants -> model, one shot
     (replaces script/pipeline/run.sh). Returns 0, or 1 on bad input."""
     dev = resolve_device(device)
     from .graph.construct import build_graph_from_kmers, simplify
-    from .io.fastx import read_batches
-    from .kmer.count import KmerCounter
     from .kmer.cutoffs import cutoff_lower_from_counts, cutoff_upper_from_counts
     from .model.gmm import run_model
 
@@ -221,16 +559,9 @@ def run_pipeline_cli(opt, device="cuda") -> int:
     times = opt.stage_seconds
 
     t0 = time.time()
-    t_read = 0.0
-    counter = KmerCounter(opt.k, device=dev)
-    batches = read_batches(opt.inputs, opt.k, trim=getattr(opt, "trim", None))
-    while True:
-        tr = time.time()
-        batch = next(batches, None)
-        t_read += time.time() - tr
-        if batch is None:
-            break
-        counter.add_reads(batch)
+    counter, t_read = count_sample(
+        opt.inputs, opt.k, dev, trim=opt.trim
+    )
     counter.write_histogram(opt.outprefix + ".hist.txt")
     hist = counter.histogram(10000)
     times["read"] = t_read
@@ -245,7 +576,12 @@ def run_pipeline_cli(opt, device="cuda") -> int:
     km, ct = counter.arrays()
     # graph on k-mers >= lower cutoff = the reference's read-masking
     # stage (kmc_tools filter -ci<lower>, script/pipeline/3.filter)
-    g = simplify(build_graph_from_kmers(km[ct >= lower], opt.k), opt.k)
+    g = simplify(
+        build_graph_from_kmers(
+            km[ct >= lower], opt.k, link_device=_link_device(opt, dev)
+        ),
+        opt.k,
+    )
     g.write_gfa(opt.outprefix + ".gfa")
     np.savez(opt.outprefix + ".kmers.npz", kmers=km, counts=ct, k=opt.k)
     times["build_graph"] = time.time() - t0

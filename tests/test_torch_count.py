@@ -16,6 +16,7 @@ from ploidyfrost_tpu.kmer.countdb import KmerCountDB as JaxDB
 from ploidyfrost_tpu.kmer.cutoffs import cutoff_lower_from_counts, cutoff_upper_from_counts
 from ploidyfrost_tpu_torch.kmer.count import KmerCounter, counter_from_arrays
 from ploidyfrost_tpu_torch.kmer.countdb import KmerCountDB
+from test_torch_helpers import few_torch_threads  # noqa: F401  (autouse fixture)
 
 
 def _read_batches(seed, n_batches=3, B=64, L=80, G=3000, n_rate=0.002):

@@ -24,6 +24,7 @@ from ploidyfrost_tpu.kmer.count import _extract
 from ploidyfrost_tpu.kmer.pallas_extract import extract_canonical as pallas_extract
 from ploidyfrost_tpu_torch.kmer import extract as T
 from ploidyfrost_tpu_torch.kmer.pack import SENTINEL
+from test_torch_helpers import few_torch_threads  # noqa: F401  (autouse fixture)
 
 
 def _jax_keys(hi, lo):

@@ -15,6 +15,7 @@ import torch
 
 from ploidyfrost_tpu.model import gmm as J
 from ploidyfrost_tpu_torch.model import gmm as T
+from test_torch_helpers import few_torch_threads  # noqa: F401  (autouse fixture)
 
 RTOL = 1e-10
 

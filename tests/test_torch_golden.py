@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from test_golden import FILES, GOLD, make_reads
+from test_torch_helpers import few_torch_threads  # noqa: F401  (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -94,40 +95,82 @@ def test_run_subcommand_on_pipeline_outputs(port_run, tmp_path):
 
 
 def test_port_imports_no_jax():
+    """Every module of the package imports, in a fresh interpreter,
+    without loading jax or the JAX package (and so without a GPU
+    toolchain: none is needed at import)."""
     code = (
-        "import sys\n"
-        "import ploidyfrost_tpu_torch.cli, ploidyfrost_tpu_torch.pipeline\n"
-        "import ploidyfrost_tpu_torch.kmer.count, ploidyfrost_tpu_torch.bubble.batched\n"
-        "import ploidyfrost_tpu_torch.model.gmm, ploidyfrost_tpu_torch.sites.emit\n"
+        "import importlib, pkgutil, sys\n"
+        "import ploidyfrost_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'ploidyfrost_tpu' or m.startswith('ploidyfrost_tpu.')]\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n"
+        "print(len(names), bad)\n"
+        "sys.exit(1 if bad or len(names) < 30 else 0)\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    for name in ("graph.colors", "io.bfg", "io.kmc", "sites.emit_colored"):
+        assert os.path.exists(os.path.join(ROOT, "ploidyfrost_tpu_torch", *name.split(".")) + ".py")
 
 
-@pytest.mark.parametrize("entry", ["pipeline", "run_analysis", "run_model", "cli"])
-def test_entry_points_refuse_without_cuda(entry, tmp_path):
+_ENTRIES = [
+    "pipeline", "run_analysis", "run_model", "cli",
+    "pipeline_multi", "run_colored_analysis", "build_graph", "build_colored_graph",
+    "build_graph_from_reads", "kmer_counter",
+    "cli_count", "cli_build", "cli_build_c", "cli_pipeline_multi", "cli_run_f",
+]
+
+
+@pytest.mark.parametrize("entry", _ENTRIES)
+def test_entry_points_refuse_without_cuda(entry, tmp_path, monkeypatch):
     """Without device=, an entry point asks for CUDA; on a host without
     it, it raises before doing any work instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from ploidyfrost_tpu_torch import cli, pipeline
+    from ploidyfrost_tpu_torch.graph.construct import build_graph_from_reads
+    from ploidyfrost_tpu_torch.kmer.count import KmerCounter
     from ploidyfrost_tpu_torch.model.gmm import run_model
 
+    monkeypatch.chdir(tmp_path)
     fre = tmp_path / "af.txt"
     fre.write_text("0.5\n0.4\n0.6\n")
-    opt = cli.parse_options(["-o", str(tmp_path / "x"), str(tmp_path / "none.fa")], cli.Options())
+    reads = tmp_path / "r.fa"
+    reads.write_text(">r1\n" + "ACGTTGCAAGGCTTAACCGGTACGTAGCTAGGATCCA" * 3 + "\n")
+    (tmp_path / "cov.txt").write_text("10\t40\n")
+    opt = cli.parse_options(["-o", "x", str(reads)], cli.Options())
+    opt.coverage_vec = [(10, 40)]
+    colored = ["-g", "x.gfa", "-f", "x.colors.npz", "-d", "list.txt", "-C", "cov.txt"]
     calls = {
         "pipeline": lambda: pipeline.run_pipeline_cli(opt),
         "run_analysis": lambda: pipeline.run_analysis(opt),
         "run_model": lambda: run_model(str(tmp_path / "m"), fre_file=str(fre)),
         "cli": lambda: cli.main(["model", "-g", str(fre), "-o", str(tmp_path / "m")]),
+        "pipeline_multi": lambda: pipeline.run_multisample_pipeline_cli(opt),
+        "run_colored_analysis": lambda: pipeline.run_colored_analysis(opt),
+        "build_graph": lambda: pipeline.build_graph_cli(opt),
+        "build_colored_graph": lambda: pipeline.build_colored_graph_cli(opt),
+        "build_graph_from_reads": lambda: build_graph_from_reads([str(reads)], 25),
+        "kmer_counter": lambda: KmerCounter(25),
+        "cli_count": lambda: cli.main(["count", "-o", "x", str(reads)]),
+        "cli_build": lambda: cli.main(["build", "-o", "x", str(reads), "--device-build"]),
+        "cli_build_c": lambda: cli.main(["build", "-c", "-o", "x", str(reads)]),
+        "cli_pipeline_multi": lambda: cli.main(["pipeline-multi", "-o", "x", str(reads)]),
+        "cli_run_f": lambda: cli.main(colored),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
-    assert not (tmp_path / "m_model_result.txt").exists()
+    # nothing was written: no result, no histogram, no table, no graph
+    assert sorted(os.listdir(tmp_path)) == ["af.txt", "cov.txt", "r.fa"]
+
+
+@pytest.mark.parametrize("cmd", ["filter", "filter-multi", "drawfreq", "figures"])
+def test_post_processing_subcommands_say_not_ported(cmd, capsys):
+    from ploidyfrost_tpu_torch.cli import main
+
+    assert main([cmd, "x"]) == 1
+    assert "is not part of this package" in capsys.readouterr().err

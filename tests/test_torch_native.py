@@ -8,6 +8,7 @@ be left behind. The build directory is the test's own temporary one,
 never the package's.
 """
 
+import os
 import subprocess
 import sys
 import time
@@ -15,6 +16,9 @@ import time
 import pytest
 
 WORKERS = 4
+# the children import the package from the repository root, wherever an
+# earlier test of this worker left the working directory
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CHILD = r"""
 import os, sys, time
@@ -35,7 +39,7 @@ def test_concurrent_builds_all_load(tmp_path, loader, lib_name):
     go = tmp_path / "go"
     cmd = [sys.executable, "-c", CHILD, str(build), str(go), loader]
     procs = [
-        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for _ in range(WORKERS)
     ]
     time.sleep(0.5)

@@ -21,6 +21,7 @@ from ploidyfrost_tpu.graph.construct import build_graph_from_kmers as jax_build
 from ploidyfrost_tpu.kmer.pack import string_kmers_np
 from ploidyfrost_tpu_torch.bubble import batched as T
 from ploidyfrost_tpu_torch.graph.construct import build_graph_from_kmers as port_build
+from test_torch_helpers import few_torch_threads  # noqa: F401  (autouse fixture)
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 
