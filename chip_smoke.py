@@ -44,7 +44,38 @@ Phases (any failure exits non-zero):
      timed both ways on that k-mer set, in turns), and
      kmer/countdb.lookup_device against KmerCountDB.lookup on the
      bench5m table with about 10 M queries, half of them reverse
-     complements and a tenth absent (counts and hits equal, both timed).
+     complements and a tenth absent (counts and hits equal, both timed);
+  8. post-processing on the card's outputs: `filter` (defaults, and
+     with -l/-u from the cutoffs) then `model` on the filtered
+     frequencies for the single_diploid outputs of phase 3 and the
+     bench5m outputs of phase 4, `filter-multi` then `model` for the
+     multi_colored outputs of phase 5, ploidy 2 each time; the tables
+     half of `figures` on bench5m's prefix with the GMM fits on the card
+     and on the CPU (_site_stats.tsv byte-equal, _loglikelihood.tsv
+     equal to 6 significant digits, `ll_curves` timed on both); the PNG
+     files where matplotlib imports, else `drawfreq` must fail with its
+     one line and code 1;
+  9. the NW wavefront on the card: the indel_dense read set (1 Mbp
+     tetraploid, about 900 indels; tests/test_golden_indel.py) through
+     `pipeline` on the card (12 tables byte-identical to
+     tests/golden/indel_dense, cutoffs (10, 83), ploidy 4) with a hook
+     that records the pairs its analysis hands to
+     needleman_wunsch_batch (570; bench5m, whose bubbles are SNPs,
+     hands it 132 in phase 4, recorded the same way); those pairs (at
+     most 2000) and synthetic pairs of every tier
+     from 16 to 2048, some with '-' in A, and one pair above the largest
+     tier, through nw_matrices_batched on the card, bit-exact against
+     the native kernel and against the numpy wavefront; the three
+     engines timed on the real pairs; then `run` on that graph with the
+     native NW library withheld for that call, under PLOIDYFROST_TRACE:
+     the same 12 tables, ENGINE_CALLS["device"] > 0 and ["numpy"] == 0,
+     CUDA kernels in both phase traces;
+ 10. tracing: the single_diploid `run` under PLOIDYFROST_TRACE (both
+     phase traces written, CUDA kernels in findSuperBubble.json; its
+     sites pass is host code while the native NW kernel runs, so
+     ploidyEstimation.json holds kernels only in phase 9's run); then
+     bench5m's superbubble search under the profiler and the card's
+     busy share of it.
 
 All five native host libraries must load.
 
@@ -72,6 +103,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, ".smoke_work")
 GOLD = os.path.join(ROOT, "tests", "golden", "single_diploid")
 GOLD_COLORED = os.path.join(ROOT, "tests", "golden", "multi_colored")
+GOLD_INDEL = os.path.join(ROOT, "tests", "golden", "indel_dense")
 COLORED_CUTOFFS = [(10, 39), (10, 41), (10, 37)]
 GOLD_FILES = [
     "Unitig_Id", "super_bubble", "alignseq", "bicov", "bifre", "tricov",
@@ -157,6 +189,45 @@ def make_sample_reads(d: str, genome_bp: int) -> list[str]:
                         f.write(f">r{n}\n{seq[st:st+150]}\n")
         paths.append(path)
     return paths
+
+
+def make_indel_reads(path: str):
+    """The indel_dense read set (tests/test_golden_indel.py
+    make_indel_reads): 1 Mbp tetraploid, shared variant positions, about
+    300 scattered 1-6 bp indels a derived haplotype and 8 clustered
+    indel runs, 18 passes a haplotype, seed 13."""
+    rng = np.random.default_rng(13)
+    G = 1_000_000
+    g0 = rng.integers(0, 4, G)
+    var_pos = np.flatnonzero(rng.random(G) < 0.006)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    haps = [bases[g0].tobytes().decode()]
+    for _ in range(3):
+        g = g0.copy()
+        hit = var_pos[rng.random(len(var_pos)) < 0.6]
+        g[hit] = (g[hit] + rng.integers(1, 4, len(hit))) % 4
+        hl = list(bases[g].tobytes().decode())
+        for pos in sorted(rng.integers(1000, G - 1000, 300), reverse=True):
+            ln = int(rng.integers(1, 7))
+            if rng.random() < 0.5:
+                hl[pos:pos] = ["ACGT"[rng.integers(0, 4)] for _ in range(ln)]
+            else:
+                del hl[pos : pos + ln]
+        for base_pos in sorted(rng.integers(5000, G - 5000, 8), reverse=True):
+            for _ in range(int(rng.integers(3, 6))):
+                pos = base_pos + int(rng.integers(0, 60))
+                if rng.random() < 0.5:
+                    hl[pos:pos] = ["ACGT"[rng.integers(0, 4)]]
+                else:
+                    del hl[pos : pos + 1]
+        haps.append("".join(hl))
+    with open(path, "w") as f:
+        n = 0
+        for hap in haps:
+            for _ in range(18):
+                for s in rng.integers(0, len(hap) - 150, len(hap) // 150):
+                    n += 1
+                    f.write(f">r{n}\n{hap[s:s+150]}\n")
 
 
 def build_kernels(baseline_cu: str | None):
@@ -375,22 +446,28 @@ def _same_to_6_digits(a: str, b: str) -> bool:
     return True
 
 
-def check_golden_outputs(gold_dir: str, ploidy: int) -> str:
-    """The 12 tables under ./PloidyFrost_output byte-identical to
-    `gold_dir`, the model result equal to 6 significant digits, ploidy
-    2; returns how the model result compared."""
+def check_golden_tables(gold_dir: str, prefix: str = "gold"):
+    """The 12 tables ./PloidyFrost_output/<prefix>_* byte-identical to
+    `gold_dir`'s."""
     for name in GOLD_FILES:
-        with open(os.path.join("PloidyFrost_output", f"gold_{name}.txt"), "rb") as f1, \
+        with open(os.path.join("PloidyFrost_output", f"{prefix}_{name}.txt"), "rb") as f1, \
                 open(os.path.join(gold_dir, f"gold_{name}.txt"), "rb") as f2:
             if f1.read() != f2.read():
-                raise AssertionError(f"golden table {name} differs")
+                raise AssertionError(f"golden table {name} differs ({gold_dir})")
+
+
+def check_golden_outputs(gold_dir: str, ploidy: int, want_ploidy: int = 2) -> str:
+    """The 12 tables under ./PloidyFrost_output byte-identical to
+    `gold_dir`, the model result equal to 6 significant digits, the
+    ploidy as wanted; returns how the model result compared."""
+    check_golden_tables(gold_dir)
     with open("gold_model_result.txt") as f1, \
             open(os.path.join(gold_dir, "gold_model_result.txt")) as f2:
         mine, gold = f1.read(), f2.read()
     if not _same_to_6_digits(mine, gold):
         raise AssertionError("gold_model_result.txt differs beyond 6 significant digits")
-    if ploidy != 2:
-        raise AssertionError(f"golden ploidy {ploidy} != 2")
+    if ploidy != want_ploidy:
+        raise AssertionError(f"golden ploidy {ploidy} != {want_ploidy}")
     return "byte-identical" if mine == gold else "equal to 6 significant digits"
 
 
@@ -593,6 +670,368 @@ def torch_programs(device: str, work: str, reads: str, table: str, lower: int):
         f"{spread(dev_s)[0]:.3f} s with the queries' and the results' copies")
 
 
+def _sync(device: str):
+    """Wait for the card's queued work (nothing to wait for on the CPU)."""
+    if device == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
+
+
+def _activities(device: str):
+    from torch.profiler import ProfilerActivity
+
+    return [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device == "cuda" else [])
+
+
+class record_nw_pairs:
+    """While active, every needleman_wunsch_batch call of the analysis
+    is recorded: `calls` holds each call's list of pairs."""
+
+    def __enter__(self):
+        from ploidyfrost_tpu_torch.align import batch_nw
+
+        self.calls = []
+        self._orig = batch_nw.needleman_wunsch_batch
+
+        def recording(pairs, *args, **kwargs):
+            self.calls.append(list(pairs))
+            return self._orig(pairs, *args, **kwargs)
+
+        batch_nw.needleman_wunsch_batch = recording
+        return self
+
+    def __exit__(self, *exc):
+        from ploidyfrost_tpu_torch.align import batch_nw
+
+        batch_nw.needleman_wunsch_batch = self._orig
+
+
+class without_native_nw:
+    """While active, the native NW flag library counts as unavailable
+    (as on a host without a C++ toolchain); the other native libraries
+    stay."""
+
+    def __enter__(self):
+        from ploidyfrost_tpu_torch import native
+
+        self._orig = native.load_nw_library
+        native.load_nw_library = lambda: None
+
+    def __exit__(self, *exc):
+        from ploidyfrost_tpu_torch import native
+
+        native.load_nw_library = self._orig
+
+
+def _filter_then_model(sub: str, inprefix: str, out: str, extra: list[str],
+                       device: str) -> tuple[int, int]:
+    """`filter` or `filter-multi`, then `model` on `device` on the
+    filtered frequencies; returns (ploidy, frequencies kept)."""
+    from ploidyfrost_tpu_torch.cli import main as cli_main
+
+    if cli_main([sub, "-i", inprefix, "-o", out, *extra]) != 0:
+        raise RuntimeError(f"{sub} {extra} failed on {inprefix}")
+    fre = out + "_allele_frequency.txt"
+    with open(fre) as f:
+        n = sum(1 for _ in f)
+    if n == 0:
+        raise AssertionError(f"{sub} {extra} kept no frequency of {inprefix}")
+    if cli_main(["model", "-g", fre, "-o", out, f"--device={device}"]) != 0:
+        raise RuntimeError(f"model failed on {fre}")
+    return _model_ploidy(out), n
+
+
+def post_processing(device: str, work: str, golden_dir: str, colored_dir: str,
+                    bench_dir: str, cutoffs: dict):
+    """Phase 8: filter / filter-multi -> model on the outputs of phases
+    3-5, and `figures` on bench5m's with the GMM on the card and on the
+    CPU."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from ploidyfrost_tpu_torch import figures
+    from ploidyfrost_tpu_torch.cli import main as cli_main
+
+    os.makedirs(work, exist_ok=True)
+    os.chdir(work)
+    runs = [
+        ("single_diploid", "filter", os.path.join(golden_dir, "PloidyFrost_output", "gold"),
+         cutoffs["golden"]),
+        ("multi_colored", "filter-multi", os.path.join(colored_dir, "PloidyFrost_output", "gold"),
+         cutoffs["colored"]),
+        ("bench5m", "filter", os.path.join(bench_dir, "PloidyFrost_output", "bench5m"),
+         cutoffs["bench5m"]),
+    ]
+    for name, sub, inprefix, (lo, up) in runs:
+        for tag, extra in (("defaults", []), (f"-l {lo} -u {up}", ["-l", str(lo), "-u", str(up)])):
+            ploidy, n = _filter_then_model(sub, inprefix, f"{name}_{len(extra)}", extra,
+                                           device)
+            log(f"phase 8: {name}: {sub} ({tag}) kept {n} frequencies, model on the card "
+                f"gives ploidy {ploidy}")
+            if ploidy != 2:
+                raise AssertionError(f"{name}: {sub} ({tag}) then model gave ploidy {ploidy}, not 2")
+
+    prefix = runs[2][2]
+    cov = 25 * (150 - 25 + 1) / 150 / 2  # bench5m's k-mer coverage a haplotype
+    walls, tables = {}, {}
+    for side, dev in (("card", device), ("cpu", "cpu")):
+        t0 = time.time()
+        tables[side] = figures.figure_tables(prefix, f"fig_{side}", [cov], 2, device=dev)
+        walls[side] = time.time() - t0
+    with open("fig_card_site_stats.tsv", "rb") as f1, open("fig_cpu_site_stats.tsv", "rb") as f2:
+        if f1.read() != f2.read():
+            raise AssertionError("figures: _site_stats.tsv differs between cuda and cpu")
+    with open("fig_card_loglikelihood.tsv") as f1, open("fig_cpu_loglikelihood.tsv") as f2:
+        ll_card, ll_cpu = f1.read(), f2.read()
+    if not _same_to_6_digits(ll_card, ll_cpu):
+        raise AssertionError("figures: _loglikelihood.tsv differs beyond 6 significant digits "
+                             "between cuda and cpu")
+    t = tables["card"]
+    ll_s = {}
+    for side, dev in (("card", device), ("cpu", "cpu"), ("cpu", "cpu"), ("card", device)):
+        t0 = time.time()
+        figures.ll_curves(t["frequency"], t["fre_tiers"], 1, 9, device=dev)
+        ll_s.setdefault(side, []).append(time.time() - t0)
+    log(f"phase 8: figures tables on bench5m ({len(t['frequency']['fre'])} frequencies, "
+        f"{len(t['fre_tiers'])} tiers, 9 gauss counts): _site_stats.tsv byte-equal, "
+        f"_loglikelihood.tsv {'byte-equal' if ll_card == ll_cpu else 'equal to 6 significant digits'} "
+        f"between the card and the CPU; figure_tables wall {walls['card']:.3f} s on the card "
+        f"(first use), {walls['cpu']:.3f} s on the CPU; ll_curves alone "
+        + ", ".join(f"{d} {min(v):.3f} s and {max(v):.3f} s" for d, v in ll_s.items()))
+
+    fre = "bench5m_0_allele_frequency.txt"
+    if importlib.util.find_spec("matplotlib") is not None:
+        if figures.draw_figures(t, "fig_card", [cov], 2) != 0:
+            raise RuntimeError("figures: drawing failed")
+        if cli_main(["drawfreq", "-f", fre, "-o", "bench5m", "-p", "2"]) != 0:
+            raise RuntimeError("drawfreq failed")
+        for png in ("fig_card_frequency_density.png", "fig_card_coverage_density.png",
+                    "fig_card_loglikelihood.png", "bench5m_allele_frequency.png"):
+            if os.path.getsize(png) == 0:
+                raise AssertionError(f"{png} is empty")
+        log("phase 8: matplotlib present: 4 PNG files drawn")
+    else:
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc_draw = cli_main(["drawfreq", "-f", fre, "-o", "bench5m", "-p", "2"])
+            rc_fig = figures.draw_figures(t, "fig_card", [cov], 2)
+        lines = err.getvalue().strip().splitlines()
+        if (rc_draw, rc_fig) != (1, 1) or len(lines) != 2 or not all("matplotlib" in x for x in lines):
+            raise AssertionError(f"without matplotlib: drawfreq {rc_draw}, figures {rc_fig}, {lines}")
+        if any(f.endswith(".png") for f in os.listdir(".")):
+            raise AssertionError("a PNG file was written without matplotlib")
+        log(f"phase 8: matplotlib absent: PNGs not drawn; drawfreq exits 1 with {lines[0]!r}")
+
+
+def _synthetic_nw_pairs():
+    """A few pairs in every tier from 16 to 2048 (one with '-' in A, so
+    the forbidden-Left rule fires) and one pair above the largest tier."""
+    import random
+
+    from ploidyfrost_tpu_torch.align.batch_nw import _MAX_TIER
+
+    rng = random.Random(5)
+
+    def seq(n, alphabet="ACGT"):
+        return "".join(rng.choice(alphabet) for _ in range(n))
+
+    pairs = []
+    tier = 16
+    while tier <= _MAX_TIER:
+        lo = tier // 2 + 1
+        pairs.append((seq(tier), seq(rng.randint(lo, tier))))
+        pairs.append((seq(rng.randint(lo, tier)), seq(tier)))
+        pairs.append((seq(rng.randint(lo, tier), "ACGT-"), seq(rng.randint(1, tier))))
+        tier *= 2
+    pairs.append((seq(_MAX_TIER + 52), seq(40)))
+    return pairs
+
+
+def _same_matrices(got, want, what: str):
+    for i, (g, w) in enumerate(zip(got, want)):
+        for name, a, b in zip(("Up", "LeftUp", "Left"), g, w):
+            if a.shape != b.shape or not np.array_equal(a, b):
+                raise AssertionError(f"NW {name} matrix of pair {i} differs from {what}")
+
+
+def nw_wavefront(device: str, work: str, bench_pairs: list):
+    """Phase 9: the indel_dense golden on the card, the torch wavefront
+    against the native kernel and the numpy wavefront on its real pairs,
+    on bench5m's (`bench_pairs`) and on every tier, the three engines timed, and a traced `run`
+    with the native NW library withheld."""
+    import collections
+
+    from ploidyfrost_tpu_torch.align import batch_nw
+    from ploidyfrost_tpu_torch.align.nw import _nw_matrix, nw_matrices_native
+    from ploidyfrost_tpu_torch.kmer import extract
+    from ploidyfrost_tpu_torch.kmer.extract_bench import spread
+
+    os.makedirs(work, exist_ok=True)
+    os.chdir(work)
+    t0 = time.time()
+    make_indel_reads("reads.fa")
+    log(f"indel_dense reads generated in {time.time() - t0:.1f} s")
+    calls0 = dict(batch_nw.ENGINE_CALLS)
+    extract.LAUNCHES = 0
+    with record_nw_pairs() as rec:
+        opt, ploidy, wall = run_pipeline("reads.fa", "gold", device)
+    launches = extract.LAUNCHES
+    if device == "cuda" and launches == 0:
+        raise AssertionError("the indel_dense pipeline never launched K1")
+    if (opt.coverage_lower, opt.coverage_upper) != (10, 83):
+        raise AssertionError(f"indel_dense cutoffs {(opt.coverage_lower, opt.coverage_upper)}")
+    model = check_golden_outputs(GOLD_INDEL, ploidy, want_ploidy=4)
+    if batch_nw.ENGINE_CALLS["native"] - calls0["native"] != len(rec.calls) or not rec.calls:
+        raise AssertionError(f"indel_dense: {len(rec.calls)} batch calls, engines "
+                             f"{batch_nw.ENGINE_CALLS} after {calls0}")
+    log(f"phase 9: indel_dense golden on the card: 12 tables byte-identical, model {model}, "
+        f"ploidy 4, cutoffs (10, 83), pipeline wall {wall:.2f} s, K1 launches {launches}, "
+        f"{sum(map(len, rec.calls))} pairs handed to needleman_wunsch_batch (native engine)")
+
+    real = ([p for call in rec.calls for p in call] + bench_pairs)[:2000]
+    synth = _synthetic_nw_pairs()
+    scoring = (2.0, -1.0, -3.0)
+    hist = collections.Counter(batch_nw._tier_of(len(a), len(b)) for a, b in real)
+    times = {"native": [], "device": [], "numpy": []}
+    t0 = time.time()
+    want_np = [_nw_matrix(a, b, *scoring) for a, b in real]
+    times["numpy"].append(time.time() - t0)
+    for _ in range(3):
+        t0 = time.time()
+        want_native = nw_matrices_native(real, *scoring)
+        times["native"].append(time.time() - t0)
+        _sync(device)
+        t0 = time.time()
+        got = batch_nw.nw_matrices_batched(real, *scoring, device=device)
+        _sync(device)
+        times["device"].append(time.time() - t0)
+        _same_matrices(got, want_native, "the native kernel's")
+        _same_matrices(got, want_np, "the numpy wavefront's")
+    t0 = time.time()
+    got = batch_nw.nw_matrices_batched(synth, *scoring, device=device)
+    _sync(device)
+    synth_s = time.time() - t0
+    _same_matrices(got, nw_matrices_native(synth, *scoring), "the native kernel's (synthetic)")
+    _same_matrices(got, [_nw_matrix(a, b, *scoring) for a, b in synth],
+                   "the numpy wavefront's (synthetic)")
+    steps = sum(2 * t + 1 for t in hist)
+    nat, dev = spread(times["native"]), spread(times["device"])
+    log(f"phase 9: torch wavefront on the card bit-exact against the native kernel and the numpy "
+        f"wavefront on {len(real)} real pairs ({len(real) - len(bench_pairs)} of indel_dense, "
+        f"{len(bench_pairs)} of bench5m; tiers {dict(sorted(hist.items()))}) and "
+        f"{len(synth)} synthetic pairs (tiers 16..2048, dashes in A, one pair above the largest "
+        f"tier on the host; {synth_s:.3f} s); engines on the real pairs, copies and de-skew "
+        f"included, median [min, max] of 3: native C {nat[0]:.4f} s [{nat[1]:.4f}, {nat[2]:.4f}], "
+        f"torch on the card {dev[0]:.4f} s [{dev[1]:.4f}, {dev[2]:.4f}] over {steps} wavefront "
+        f"steps, numpy {times['numpy'][0]:.3f} s (one run)")
+
+    # one chunk of the commonest tier under the profiler: launches a step
+    from torch.profiler import profile
+
+    from ploidyfrost_tpu_torch.util.profiling import device_busy
+
+    tier = hist.most_common(1)[0][0]
+    lanes = [p for p in real if batch_nw._tier_of(len(p[0]), len(p[1])) == tier][
+        : batch_nw._chunk_of(tier)]
+    _sync(device)
+    with profile(activities=_activities(device)) as prof:
+        t0 = time.time()
+        batch_nw.wavefront_packed([a for a, _ in lanes], [b for _, b in lanes], tier, 2, -1, -3,
+                                  device)
+        _sync(device)
+        wall = time.time() - t0
+    busy = device_busy(prof, wall)
+    log(f"phase 9: one tier-{tier} chunk of {len(lanes)} lanes under the profiler: "
+        f"{busy['kernels']} kernels over {2 * tier + 1} steps "
+        f"({busy['kernels'] / (2 * tier + 1):.1f} a step), kernel time {busy['kernel_s']:.4f} s, "
+        f"copies {busy['copy_s']:.4f} s, wall {wall:.4f} s, the card busy "
+        f"{100 * busy['busy_share']:.1f}% of it")
+
+    calls0 = dict(batch_nw.ENGINE_CALLS)
+    with without_native_nw():
+        n = _traced_run(device, "gold", "nonative", ["-l", "10", "-u", "83"])
+    check_golden_tables(GOLD_INDEL, "nonative")
+    delta = {k: batch_nw.ENGINE_CALLS[k] - calls0[k] for k in calls0}
+    if delta["device"] < 1 or delta["numpy"] or delta["native"]:
+        raise AssertionError(f"run without the native NW library used engines {delta}")
+    if device == "cuda" and min(n.values()) < 1:
+        raise AssertionError(f"the traces of that run hold CUDA kernels {n}")
+    log(f"phase 9: `run` on the indel_dense graph with the native NW library withheld, "
+        f"--device={device}, under PLOIDYFROST_TRACE: 12 tables byte-identical, engines {delta}, "
+        f"findSuperBubble.json holds {n['findSuperBubble']} CUDA kernels, ploidyEstimation.json "
+        f"{n['ploidyEstimation']} (the wavefront's)")
+
+
+def _trace_kernels(path: str) -> int:
+    """CUDA kernel events in a chrome trace file."""
+    with open(path) as f:
+        return sum(1 for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel")
+
+
+def _traced_run(device: str, src_prefix: str, out: str, cutoffs: list[str]) -> dict:
+    """`run` on <src_prefix>.gfa and .kmers.npz under PLOIDYFROST_TRACE=
+    ./<out>_trace; returns the CUDA kernel events of each phase's trace."""
+    from ploidyfrost_tpu_torch.cli import main as cli_main
+
+    trace_dir = os.path.abspath(out + "_trace")
+    os.environ["PLOIDYFROST_TRACE"] = trace_dir
+    try:
+        rc = cli_main(["-g", src_prefix + ".gfa", "-d", src_prefix + ".kmers.npz", "-o", out,
+                       *cutoffs, f"--device={device}"])
+    finally:
+        del os.environ["PLOIDYFROST_TRACE"]
+    if rc != 0:
+        raise RuntimeError(f"traced run {out} returned {rc}")
+    return {name: _trace_kernels(os.path.join(trace_dir, name + ".json"))
+            for name in ("findSuperBubble", "ploidyEstimation")}
+
+
+def tracing(device: str, work: str, golden_dir: str, bench_dir: str):
+    """Phase 10: the phase traces of the single_diploid `run`, and the
+    card's busy share of bench5m's superbubble search."""
+    from torch.profiler import profile
+
+    from ploidyfrost_tpu_torch.bubble.batched import find_superbubbles_device
+    from ploidyfrost_tpu_torch.graph.cdbg import CDBGraph
+    from ploidyfrost_tpu_torch.util.profiling import device_busy
+
+    os.makedirs(work, exist_ok=True)
+    os.chdir(work)
+    n = _traced_run(device, os.path.join(golden_dir, "gold"), "traced", ["-l", "10", "-u", "37"])
+    check_golden_tables(GOLD, "traced")
+    if device == "cuda" and n["findSuperBubble"] < 1:
+        raise AssertionError(f"the traces of the single_diploid run hold CUDA kernels {n}")
+    log(f"phase 10: `run` under PLOIDYFROST_TRACE (single_diploid): tables byte-identical, "
+        f"findSuperBubble.json holds {n['findSuperBubble']} CUDA kernels, ploidyEstimation.json "
+        f"{n['ploidyEstimation']} (its sites pass is host code while the native NW kernel runs)")
+
+    g = CDBGraph.from_gfa(os.path.join(bench_dir, "bench5m.gfa"))
+    plain = []
+    for _ in range(2):
+        _sync(device)
+        t0 = time.time()
+        _, bubbles = find_superbubbles_device(g, 8, device=device)
+        _sync(device)
+        plain.append(time.time() - t0)
+    with profile(activities=_activities(device)) as prof:
+        t0 = time.time()
+        find_superbubbles_device(g, 8, device=device)
+        _sync(device)
+        wall = time.time() - t0
+    busy = device_busy(prof, wall)
+    if device == "cuda" and busy["kernels"] < 1:
+        raise AssertionError("the profiler saw no CUDA kernel in the superbubble search")
+    log(f"phase 10: bench5m findSuperBubble ({len(g)} unitigs, {len(bubbles)} bubbles): "
+        f"{plain[0]:.3f} s and {plain[1]:.3f} s without the profiler; under it {wall:.3f} s, "
+        f"{busy['kernels']} kernels, kernel time {busy['kernel_s']:.4f} s, copies "
+        f"{busy['copy_s']:.4f} s: the card busy {100 * busy['busy_share']:.1f}% of the profiled "
+        f"phase (idle {100 * (1 - busy['busy_share']):.1f}%), "
+        f"{100 * (busy['kernel_s'] + busy['copy_s']) / min(plain):.1f}% of the faster unprofiled "
+        "run's wall")
+
+
 def main() -> int:
     import torch
 
@@ -642,7 +1081,8 @@ def main() -> int:
     log(f"bench5m reads generated in {time.time() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
     extract.LAUNCHES = 0
-    opt, ploidy, wall = run_pipeline("bench5m_reads.fa", "bench5m", "cuda")
+    with record_nw_pairs() as bench_nw:
+        opt, ploidy, wall = run_pipeline("bench5m_reads.fa", "bench5m", "cuda")
     launches = extract.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     if launches == 0:
@@ -653,7 +1093,8 @@ def main() -> int:
         log(f"bench5m stage {stage}: {sec:.3f} s")
     log(f"bench5m: pipeline wall {wall:.3f} s, cutoffs ({opt.coverage_lower}, "
         f"{opt.coverage_upper}), ploidy {ploidy}, K1 launches {launches}, "
-        f"peak device memory {peak / 2**30:.3f} GiB")
+        f"peak device memory {peak / 2**30:.3f} GiB, "
+        f"{sum(map(len, bench_nw.calls))} pairs handed to needleman_wunsch_batch")
 
     t = time_extract(baseline_lib)
     ms = t["ms"][0]
@@ -689,6 +1130,20 @@ def main() -> int:
                    os.path.join(bench, "bench5m_reads.fa"),
                    os.path.join(bench, "bench5m.kmers.npz"), opt.coverage_lower)
     log("phase 7: device link sort and device lookup passed")
+
+    post_processing(
+        "cuda", os.path.join(WORK, "post"), os.path.join(WORK, "golden"),
+        os.path.join(WORK, "golden_colored"), bench,
+        {"golden": (10, 37), "bench5m": (opt.coverage_lower, opt.coverage_upper),
+         "colored": (min(lo for lo, _ in COLORED_CUTOFFS), max(up for _, up in COLORED_CUTOFFS))})
+    log("phase 8: post-processing passed")
+
+    nw_wavefront("cuda", os.path.join(WORK, "indel_dense"),
+                 [p for call in bench_nw.calls for p in call])
+    log("phase 9: NW wavefront passed")
+
+    tracing("cuda", os.path.join(WORK, "tracing"), os.path.join(WORK, "golden"), bench)
+    log("phase 10: tracing passed")
     if "jax" in sys.modules or "ploidyfrost_tpu" in sys.modules:
         raise AssertionError("the port pulled in jax or ploidyfrost_tpu")
 

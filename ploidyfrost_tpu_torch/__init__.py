@@ -4,8 +4,9 @@
 The single-sample and the multi-sample (colored) pipeline (reads ->
 k-mer counting -> cutoffs -> compacted, optionally colored, de Bruijn
 graph -> superbubbles -> branch alignment -> sites -> GMM-EM ploidy
-call) on an NVIDIA GPU, with their stage subcommands and the KMC and
-Bifrost file formats. Canonical k-mer extraction is a hand-written CUDA
+call) on an NVIDIA GPU, with their stage subcommands, the KMC and
+Bifrost file formats and the post-processing layer (filter.py,
+figures.py). Canonical k-mer extraction is a hand-written CUDA
 kernel (csrc/extract_canonical.cu); the counter's sort-collapse, the
 superbubble search, the EM loop and, on request, the link sort of graph
 construction are torch ops on the chosen device; graph construction,

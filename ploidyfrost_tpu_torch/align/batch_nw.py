@@ -1,15 +1,244 @@
-# Host part of ploidyfrost_tpu/align/batch_nw.py (needleman_wunsch_batch).
+# Ported from ploidyfrost_tpu/align/batch_nw.py.
 """Batched Needleman-Wunsch for the analysis phase.
 
-Every first-pair DP of an analysis phase is computed in one call to the
-native flag kernel (native/nw_flags.cpp), followed by the host
-co-optimal traceback per pair. Without a C++ toolchain the per-pair
-numpy wavefront of align/nw.py takes over (any scoring). The JAX
-package's device wavefront (`nw_matrices_batched`) is not part of this
-package: the native kernel always runs first there too.
+The reference computes one DP matrix per branch pair, inside the
+per-bubble loop (src/SeqAlign.cpp:480-549). Here every first-pair DP of
+an analysis phase is computed in one call, by the first engine that can:
+
+  1. the native flag kernel (native/nw_flags.cpp, host C++);
+  2. the torch wavefront below, on the device the caller holds;
+  3. the per-pair numpy wavefront of align/nw.py (any scoring).
+
+`ENGINE_CALLS` counts which engine produced the matrices of each
+`needleman_wunsch_batch` call. The host co-optimal traceback per pair
+follows in every case.
+
+The torch wavefront runs all pairs of a size tier at once: a loop over
+the 2T+1 anti-diagonals of a [lanes, T+1] skewed layout, each step
+computing one anti-diagonal of every pair, so the sequential DP
+dependency runs once while the batch fills the device. It reproduces
+nw._nw_matrix's integer semantics bit for bit (the same flag matrices
+the co-optimal traceback consumes):
+  * +1 continuation bonus per direction (src/SeqAlign.cpp:512-525);
+  * forbidden Left move into a next-char-of-A '-' (:528-532);
+  * integer score cells (the C++ int truncation is exact when the
+    match/mismatch/gap parameters are integers, the only case the
+    wavefront accepts).
+
+Output layout: one bit-packed flag row per diagonal d, with
+ys[lane, f, d, i] = flag f (0 Up, 1 LeftUp, 2 Left) of DP cell
+(i, d - i). The host de-skews each pair's (m+1, n+1) window with one
+fancy gather. Cells outside a pair's valid region are garbage and never
+read (the DP recurrence only flows from lower (i, j), so in-region
+values are unaffected by padding). The loop is about 30 small launches
+a step: it is bound by launches, not by arithmetic.
 """
 
 from __future__ import annotations
+
+import numpy as np
+
+DASH = 4  # '-' code; base codes 0..3; pad code 7 (never equals DASH)
+_PAD = 7
+_MIN_TIER = 16
+_MAX_TIER = 2048
+_CELL_BUDGET = 96 << 20  # device bytes for one chunk's stacked flags
+
+_ENC = np.full(256, 5, dtype=np.uint8)
+_ENC[ord("A")] = 0
+_ENC[ord("C")] = 1
+_ENC[ord("G")] = 2
+_ENC[ord("T")] = 3
+_ENC[ord("-")] = DASH
+
+# needleman_wunsch_batch calls by the engine that produced the matrices
+ENGINE_CALLS = {"native": 0, "device": 0, "numpy": 0}
+
+
+def _tier_of(m: int, n: int) -> int:
+    t = _MIN_TIER
+    need = max(m, n)
+    while t < need:
+        t <<= 1
+    return t
+
+
+def _chunk_of(tier: int) -> int:
+    lane_bytes = 3 * (2 * tier + 1) * ((tier + 2 + 7) // 8)
+    ch = _CELL_BUDGET // lane_bytes
+    ch = 1 << max(int(ch).bit_length() - 1, 0)
+    return int(min(4096, max(8, ch)))
+
+
+def _wavefront(a, b, a_len, match: int, dis: int, gap: int):
+    """The anti-diagonal wavefront of one chunk.
+
+    a, b: [CH, T] uint8 codes (pad=_PAD); a_len: [CH, 1] int32, all on
+    one device. Returns the bit-packed (little-endian) flags as a
+    [CH, 3, 2T+1, W8] uint8 tensor on that device. Nothing is read back
+    inside the loop."""
+    import torch
+
+    dev = a.device
+    CH, T = a.shape
+    W8 = (T + 2 + 7) // 8  # bytes per bit-packed flag row
+    i32 = torch.int32
+    m_ = torch.tensor(match, dtype=i32, device=dev)
+    d_ = torch.tensor(dis, dtype=i32, device=dev)
+    g_ = torch.tensor(gap, dtype=i32, device=dev)
+    i32min = torch.tensor(-(2**31), dtype=i32, device=dev)
+
+    iota = torch.arange(T + 1, dtype=i32, device=dev)
+    pad_col = torch.full((CH, 1), _PAD, dtype=torch.uint8, device=dev)
+    a_at = torch.cat([pad_col, a], dim=1)  # a_at[:, i] = A[i-1]
+    a_next = torch.cat([a, pad_col], dim=1)  # a_next[:, i] = A[i]
+    a_dash = a_at == DASH
+    # the forbidden-Left rule can fire at row i when i != m and A[i] == '-'
+    may_forbid = (iota[None, :] != a_len) & (a_next == DASH)
+    # B along diagonal d is b[:, clip(d - 1 - i, 0, T - 1)] for i in
+    # 0..T: a window of the reversed B, padded with its end values, that
+    # slides one column a step (a view, no gather)
+    rb = b.flip(1)
+    b_win = torch.cat(
+        [rb[:, :1].expand(CH, T), rb, rb[:, -1:].expand(CH, T + 1)], dim=1
+    )
+    b_win_dash = b_win == DASH
+    bitw = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.uint8, device=dev)
+    zero_col = torch.zeros((CH, 1), dtype=i32, device=dev)
+
+    def shift(x):
+        # x[:, i-1] at column i, 0 at column 0
+        return torch.cat([zero_col, x[:, :-1]], dim=1)
+
+    sc1 = sc2 = torch.zeros((CH, T + 1), dtype=i32, device=dev)
+    ys = torch.empty((2 * T + 1, 3, CH, W8), dtype=torch.uint8, device=dev)
+    # flag rows of this step and the two before it, in turns; the
+    # columns past T stay 0 and pad each row to whole bytes
+    rows = [torch.zeros((3, CH, W8 * 8), dtype=torch.bool, device=dev) for _ in range(3)]
+    for d in range(2 * T + 1):
+        flags, prev, prev2 = rows[d % 3], rows[(d - 1) % 3], rows[(d - 2) % 3]
+        up1, lu2, lf1 = prev[0, :, : T + 1], prev2[1, :, : T + 1], prev[2, :, : T + 1]
+        lo = 2 * T - d
+        sub = torch.where(
+            a_at == b_win[:, lo : lo + T + 1],
+            m_,
+            torch.where(a_dash | b_win_dash[:, lo : lo + T + 1], g_, d_),
+        )
+        # a set flag of the cell a move comes from is the +1 bonus
+        up = shift(sc1 + up1) + gap
+        left = sc1 + lf1 + gap
+        lu = shift(sc2 + lu2) + sub
+        up_lu = torch.maximum(up, lu)
+        mx = torch.maximum(up_lu, left)
+        forbid = (mx == left) & may_forbid
+        left = torch.where(forbid, i32min, left)
+        mx = torch.where(forbid, up_lu, mx)
+        upf, luf, lff = (flags[f, :, : T + 1] for f in range(3))
+        torch.eq(up, mx, out=upf)
+        torch.eq(lu, mx, out=luf)
+        torch.eq(left, mx, out=lff)
+        # boundary cells: column 0 is cell (0, d), column d is cell (d, 0)
+        sc = mx
+        sc[:, 0] = gap * d
+        upf[:, 0] = False
+        luf[:, 0] = False
+        lff[:, 0] = d > 0
+        if 0 < d <= T:
+            sc[:, d] = gap * d
+            upf[:, d] = True
+            luf[:, d] = False
+            lff[:, d] = False
+        # [3, CH, W8 * 8] bool -> [3, CH, W8] uint8, little-endian bits
+        torch.sum(
+            flags.view(3, CH, W8, 8).to(torch.uint8) * bitw,
+            dim=3,
+            dtype=torch.uint8,
+            out=ys[d],
+        )
+        sc2, sc1 = sc1, sc
+    # [2T+1, 3, CH, W8] -> [CH, 3, 2T+1, W8]: one contiguous block a lane
+    return ys.permute(2, 1, 0, 3).contiguous()
+
+
+def _encode(seqs: list[str], width: int) -> np.ndarray:
+    out = np.full((len(seqs), width), _PAD, dtype=np.uint8)
+    for i, s in enumerate(seqs):
+        out[i, : len(s)] = _ENC[np.frombuffer(s.encode(), dtype=np.uint8)]
+    return out
+
+
+def wavefront_packed(a_seqs, b_seqs, tier: int, match: int, dis: int, gap: int, device):
+    """The packed flags [len(a_seqs), 3, 2*tier+1, W8] (numpy uint8) of
+    one chunk of pairs that fit `tier`, computed on `device`."""
+    import torch
+
+    dev = torch.device(device)
+    a = torch.from_numpy(_encode(a_seqs, tier)).to(dev)
+    b = torch.from_numpy(_encode(b_seqs, tier)).to(dev)
+    a_len = torch.tensor([[len(s)] for s in a_seqs], dtype=torch.int32, device=dev)
+    return _wavefront(a, b, a_len, match, dis, gap).cpu().numpy()
+
+
+def nw_matrices_batched(
+    pairs: list[tuple[str, str]],
+    match: float,
+    dis_match: float,
+    gap: float,
+    device="cuda",
+):
+    """Device-batched version of nw._nw_matrix over many pairs.
+
+    Returns a list of (Up, LeftUp, Left) uint8 matrices, identical to
+    running nw._nw_matrix(A, B, ...) per pair. Requires integer-valued
+    scoring parameters (the reference parses them with atoi,
+    src/Main.cpp:155-168); raises ValueError otherwise so callers can
+    fall back to the host wavefront. Pairs longer than the largest tier
+    go to nw._nw_matrix on the host. A tier's pairs run in chunks of at
+    most `_chunk_of(tier)` lanes; a short chunk is not padded."""
+    for v in (match, dis_match, gap):
+        if not float(v).is_integer():
+            raise ValueError("batched NW requires integer scoring parameters")
+    from .. import resolve_device
+    from .nw import _nw_matrix
+
+    dev = resolve_device(device)
+    results: list = [None] * len(pairs)
+    by_tier: dict[int, list[int]] = {}
+    for idx, (A, B) in enumerate(pairs):
+        t = _tier_of(len(A), len(B))
+        if t > _MAX_TIER:
+            results[idx] = _nw_matrix(A, B, match, dis_match, gap)
+        else:
+            by_tier.setdefault(t, []).append(idx)
+
+    for tier, idxs in sorted(by_tier.items()):
+        CH = _chunk_of(tier)
+        # de-skew gather grid for this tier: cell (i, j) lives at
+        # ys[lane, f, i + j, i]
+        ii = np.arange(tier + 1, dtype=np.int64)[:, None]
+        jj = np.arange(tier + 1, dtype=np.int64)[None, :]
+        dgrid = ii + jj
+        for off in range(0, len(idxs), CH):
+            batch = idxs[off : off + CH]
+            ys = wavefront_packed(
+                [pairs[i][0] for i in batch],
+                [pairs[i][1] for i in batch],
+                tier, int(match), int(dis_match), int(gap), dev,
+            )
+            for lane, idx in enumerate(batch):
+                m = len(pairs[idx][0])
+                n = len(pairs[idx][1])
+                bits = np.unpackbits(
+                    ys[lane], axis=-1, bitorder="little"
+                )  # [3, 2T+1, W8*8]
+                dg = dgrid[: m + 1, : n + 1]
+                iw = ii[: m + 1]
+                results[idx] = (
+                    bits[0][dg, iw],
+                    bits[1][dg, iw],
+                    bits[2][dg, iw],
+                )
+    return results
 
 
 def needleman_wunsch_batch(
@@ -17,14 +246,30 @@ def needleman_wunsch_batch(
     match: float = 2.0,
     dis_match: float = -1.0,
     gap: float = -3.0,
+    device=None,
 ):
     """Batch counterpart of nw.needleman_wunsch: DP flag matrices in
-    batch + host co-optimal traceback per pair."""
+    batch + host co-optimal traceback per pair.
+
+    Matrix engine order: the native kernel always goes first; without it
+    (no C++ toolchain), and when the caller holds a `device`, the torch
+    wavefront on that device; the per-pair numpy wavefront (any scoring)
+    is the last resort. Each call adds one to its engine's
+    `ENGINE_CALLS` entry."""
     from .nw import _nw_matrix, _traceback, nw_matrices_native
 
+    engine = "native"
     mats = nw_matrices_native(pairs, match, dis_match, gap)
+    if mats is None and device is not None:
+        try:
+            mats = nw_matrices_batched(pairs, match, dis_match, gap, device)
+            engine = "device"
+        except ValueError:  # non-integral scoring
+            mats = None
     if mats is None:
         mats = [_nw_matrix(A, B, match, dis_match, gap) for A, B in pairs]
+        engine = "numpy"
+    ENGINE_CALLS[engine] += 1
     return [
         _traceback(U, L2, L3, A, B, match, dis_match, gap)
         for (U, L2, L3), (A, B) in zip(mats, pairs)

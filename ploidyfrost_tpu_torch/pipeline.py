@@ -15,7 +15,10 @@ All take `device` ("cuda" by default; raises when CUDA is absent, see
 resolve_device). On it run the k-mer extraction kernel, the counter's
 sort-collapse and histogram, the superbubble search and the GMM-EM fit;
 graph construction, coverage probes, alignment and table output are
-host code. Wall times of the stages land in `opt.stage_seconds`.
+host code (the alignment DP moves to the device only where the native
+NW kernel is missing, align/batch_nw.py). Wall times of the stages land
+in `opt.stage_seconds`; with PLOIDYFROST_TRACE=<dir> the two analysis
+phases are traced (util/profiling.py).
 """
 
 from __future__ import annotations
@@ -172,6 +175,7 @@ def run_colored_analysis(opt, device="cuda") -> int:
     from .bubble.batched import find_superbubbles_device as find_superbubbles
     from .bubble.superbubble import write_superbubble_file
     from .graph.cdbg import CDBGraph
+    from .util.profiling import maybe_trace
     from .sites.emit_colored import (
         analyze_bubbles_colored,
         unitig_coverage_colored,
@@ -230,7 +234,8 @@ def run_colored_analysis(opt, device="cuda") -> int:
     _log("CCDBG::findSuperBubble(): Finding superbubbles")
     t0 = time.time()
     try:
-        state, bubbles = find_superbubbles(g, opt.complex_size, colors, device=dev)
+        with maybe_trace("findSuperBubble"):
+            state, bubbles = find_superbubbles(g, opt.complex_size, colors, device=dev)
         write_superbubble_file(g, bubbles, opt.outprefix)
         times["superbubbles"] = time.time() - t0
         _log(f"CCDBG::findSuperBubble(): Real time : {times['superbubbles']}s")
@@ -247,13 +252,15 @@ def run_colored_analysis(opt, device="cuda") -> int:
         umean, uok = cov_future.result()
     finally:
         pool.shutdown()
-    emissions, window_strings, window_colors = analyze_bubbles_colored(
-        g, colors, state, umean, uok, opt.match, opt.mismatch, opt.gap
-    )
-    wcov = window_coverage_colored(dbs, window_strings, cutoffs)
-    stats = write_outputs_colored(
-        emissions, wcov, window_colors, colors.n_colors, opt.outprefix
-    )
+    with maybe_trace("ploidyEstimation"):
+        emissions, window_strings, window_colors = analyze_bubbles_colored(
+            g, colors, state, umean, uok, opt.match, opt.mismatch, opt.gap,
+            device=dev,
+        )
+        wcov = window_coverage_colored(dbs, window_strings, cutoffs)
+        stats = write_outputs_colored(
+            emissions, wcov, window_colors, colors.n_colors, opt.outprefix
+        )
     times["sites"] = time.time() - t0
     _log(f"CCDBG::PloidyEstimation(): Real time : {times['sites']}s")
     a = stats["allele"]
@@ -277,6 +284,7 @@ def run_analysis(opt, device="cuda") -> int:
     from .bubble.superbubble import write_superbubble_file
     from .graph.cdbg import CDBGraph
     from .sites.emit import analyze_bubbles, write_outputs
+    from .util.profiling import maybe_trace
 
     times = opt.stage_seconds
     t0 = time.time()
@@ -322,7 +330,8 @@ def run_analysis(opt, device="cuda") -> int:
 
     _log("findSuperBubble(): Finding superbubbles")
     t0 = time.time()
-    state, bubbles = find_superbubbles(g, opt.complex_size, device=dev)
+    with maybe_trace("findSuperBubble"):
+        state, bubbles = find_superbubbles(g, opt.complex_size, device=dev)
     write_superbubble_file(g, bubbles, opt.outprefix)
     times["superbubbles"] = time.time() - t0
     _log(f"findSuperBubble(): Real time : {times['superbubbles']}s")
@@ -335,21 +344,23 @@ def run_analysis(opt, device="cuda") -> int:
         ucov, umin = cov_future.result()
     finally:
         pool.shutdown()
-    emissions, window_strings = analyze_bubbles(
-        g,
-        state,
-        ucov,
-        umin,
-        opt.coverage_lower,
-        opt.coverage_upper,
-        opt.match,
-        opt.mismatch,
-        opt.gap,
-    )
-    wcov = window_coverage(
-        db, window_strings, opt.coverage_lower, opt.coverage_upper
-    )
-    stats = write_outputs(emissions, wcov, opt.outprefix)
+    with maybe_trace("ploidyEstimation"):
+        emissions, window_strings = analyze_bubbles(
+            g,
+            state,
+            ucov,
+            umin,
+            opt.coverage_lower,
+            opt.coverage_upper,
+            opt.match,
+            opt.mismatch,
+            opt.gap,
+            device=dev,
+        )
+        wcov = window_coverage(
+            db, window_strings, opt.coverage_lower, opt.coverage_upper
+        )
+        stats = write_outputs(emissions, wcov, opt.outprefix)
     times["sites"] = time.time() - t0
     _log(f"PloidyEstimation(): Real time : {times['sites']}s")
     a = stats["allele"]

@@ -555,6 +555,7 @@ def analyze_bubbles(
     mismatch: float = -1.0,
     gap: float = -3.0,
     batch_align: bool = True,
+    device=None,
 ) -> tuple[list[BubbleEmission], list[str]]:
     """ploidyEstimation analysis: walk every unvisited strand, align,
     extract sites. Returns (bubble emissions, all window strings needed).
@@ -563,8 +564,9 @@ def analyze_bubbles(
     (the batched readCov(u) replacement, src/CDBG.cpp:66-120).
 
     Structure: the walk collects alignment jobs; the first-pair NW DP
-    of EVERY bubble runs as one batched call to the native flag kernel
-    (align/batch_nw.py); traceback, progressive MSA of the
+    of EVERY bubble runs as one batched call (align/batch_nw.py: the
+    native flag kernel, or without it the wavefront on `device`, or the
+    numpy wavefront); traceback, progressive MSA of the
     rare >2-branch bubbles, and site extraction remain host passes in
     the original emission order.
     """
@@ -602,6 +604,7 @@ def analyze_bubbles(
             match,
             mismatch,
             gap,
+            device=device,
         )
         for i, fa in zip(slow_idx, slow_firsts):
             firsts[i] = fa

@@ -483,6 +483,7 @@ def analyze_bubbles_colored(
     mismatch: float = -1.0,
     gap: float = -3.0,
     batch_align: bool = True,
+    device=None,
 ):
     """Colored ploidyEstimation analysis (src/CCDBG.cpp:2759-3531).
 
@@ -491,9 +492,9 @@ def analyze_bubbles_colored(
     window->contained-colors map).
 
     Same structure as emit.analyze_bubbles: the walk collects jobs,
-    the first-pair NW DP of every bubble runs as one batched call to
-    the native flag kernel (align/batch_nw.py), site extraction
-    finishes on host."""
+    the first-pair NW DP of every bubble runs as one batched call
+    (align/batch_nw.py; `device` is where its wavefront runs when the
+    native flag kernel is missing), site extraction finishes on host."""
     from .emit import _BATCH_MIN
 
     seqalign = SeqAlign(match, mismatch, gap)
@@ -533,7 +534,7 @@ def analyze_bubbles_colored(
 
         slow_firsts = needleman_wunsch_batch(
             [(jobs[i].str_vec[0], jobs[i].str_vec[1]) for i in slow_idx],
-            match, mismatch, gap,
+            match, mismatch, gap, device=device,
         )
         for i, fa in zip(slow_idx, slow_firsts):
             firsts[i] = fa

@@ -168,9 +168,14 @@ def test_entry_points_refuse_without_cuda(entry, tmp_path, monkeypatch):
     assert sorted(os.listdir(tmp_path)) == ["af.txt", "cov.txt", "r.fa"]
 
 
-@pytest.mark.parametrize("cmd", ["filter", "filter-multi", "drawfreq", "figures"])
-def test_post_processing_subcommands_say_not_ported(cmd, capsys):
+@pytest.mark.parametrize("cmd,module", [("filter", "filter"), ("filter-multi", "filter"),
+                                        ("drawfreq", "drawfreq"), ("figures", "figures")])
+def test_post_processing_subcommands_reach_their_parsers(cmd, module, capsys):
+    """The four post-processing subcommands are dispatched to their own
+    argument parsers, which name themselves when they refuse an option
+    (tests/test_torch_cli_edges.py drives each to its outputs)."""
     from ploidyfrost_tpu_torch.cli import main
 
-    assert main([cmd, "x"]) == 1
-    assert "is not part of this package" in capsys.readouterr().err
+    with pytest.raises(SystemExit, match=f"unknown {module} option --nope"):
+        main([cmd, "--nope", "--device=cpu"])
+    assert "not part of this package" not in capsys.readouterr().err
