@@ -75,9 +75,23 @@ Phases (any failure exits non-zero):
      sites pass is host code while the native NW kernel runs, so
      ploidyEstimation.json holds kernels only in phase 9's run); then
      bench5m's superbubble search under the profiler and the card's
-     busy share of it.
+     busy share of it;
+ 11. several cards (parallel/): the visible card count; (a) a one-rank
+     NCCL group on cuda:0: ShardedKmerCounter over bench5m's reads with
+     the table, histogram and instance count of KmerCounter on the same
+     batches, both timed in turns with their K1 launches and the sharded
+     flushes (key bytes, route + merge seconds); the GMM fits on
+     bench5m's frequencies (gauss 1..9) through the group within 1e-12
+     relative of the single-device fits; the superbubble search through
+     the group equal to search_seeds and the bubbles equal; (b) with two
+     or more cards, `pipeline --devices=min(4, cards)` on bench5m as a
+     user runs it (python -m ploidyfrost_tpu_torch.cli): every file it
+     writes byte-identical to phase 4's, every rank's stage seconds and
+     K1 launches printed; with one card, one line that says the run on
+     several cards was not possible here.
 
-All five native host libraries must load.
+Phases 1-10 run on one card (PLOIDYFROST_DEVICES=1 for the CLI calls),
+whatever the machine holds. All five native host libraries must load.
 
 The line before the last is the kernel table as one JSON object; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -1032,6 +1046,151 @@ def tracing(device: str, work: str, golden_dir: str, bench_dir: str):
         "run's wall")
 
 
+def _file_set(d: str) -> set[str]:
+    return {os.path.relpath(os.path.join(r, f), d) for r, _, fs in os.walk(d) for f in fs}
+
+
+def multi_card(work: str, bench: str, reads: str) -> dict:
+    """Phase 11: the sharded counter, EM and search on a one-rank NCCL
+    group against the single-device ones; with two or more cards the
+    bench5m `pipeline` on several cards against phase 4's files."""
+    import torch
+    import torch.distributed as dist
+
+    from ploidyfrost_tpu_torch.bubble.batched import (
+        canonical_seeds, find_superbubbles_device, search_seeds)
+    from ploidyfrost_tpu_torch.graph.cdbg import CDBGraph
+    from ploidyfrost_tpu_torch.io.fastx import read_batches
+    from ploidyfrost_tpu_torch.kmer import extract
+    from ploidyfrost_tpu_torch.kmer.count import KmerCounter
+    from ploidyfrost_tpu_torch.model.gmm import GmmModel
+    from ploidyfrost_tpu_torch.parallel.mesh import RankPlan, init_group
+    from ploidyfrost_tpu_torch.parallel.sharded import ShardedKmerCounter
+
+    os.makedirs(work, exist_ok=True)
+    os.chdir(work)
+    n_cards = torch.cuda.device_count()
+    log(f"phase 11: {n_cards} visible card(s): "
+        + ", ".join(torch.cuda.get_device_name(i) for i in range(n_cards)))
+    res = {"cards": n_cards}
+    plan = RankPlan(local=1, world=1, offset=0, device_type="cuda",
+                    init_method="file://" + os.path.join(work, "rendezvous"), timeout_s=600)
+    group = init_group(plan, 0)
+    log(f"phase 11a: one-rank NCCL group on cuda:0 joined in {group.init_s:.3f} s "
+        "(communicator set-up included)")
+    try:
+        batches = list(read_batches([reads], 25))
+        times = {"single": [], "sharded": []}
+        launches, tables = {}, {}
+        for side in ("single", "sharded", "sharded", "single"):
+            torch.cuda.synchronize()
+            extract.LAUNCHES = 0
+            t0 = time.time()
+            c = KmerCounter(25, device="cuda") if side == "single" else \
+                ShardedKmerCounter(group, 25)
+            for b in batches:
+                c.add_reads(b)
+            km, ct = c.arrays()
+            times[side].append(time.time() - t0)
+            launches[side] = extract.LAUNCHES
+            tables[side] = (km, ct, c.histogram(10000), c.total_kmers)
+            if side == "sharded":
+                flushes = c.flush_log
+            del c
+        a, b = tables["single"], tables["sharded"]
+        if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                and np.array_equal(a[2], b[2]) and a[3] == b[3]):
+            raise AssertionError("the one-rank sharded counter differs from KmerCounter")
+        if launches["sharded"] != launches["single"] or launches["sharded"] == 0:
+            raise AssertionError(f"K1 launches: single {launches['single']}, "
+                                 f"sharded {launches['sharded']}")
+        res["launches"] = launches["sharded"]
+        log(f"phase 11a: one-rank NCCL group on cuda:0, bench5m ({len(batches)} batches, "
+            f"{a[3]} k-mer instances, {len(a[0])} distinct): ShardedKmerCounter table, "
+            f"histogram and instance count equal to KmerCounter's; count + finalize wall "
+            f"KmerCounter {min(times['single']):.3f} s and {max(times['single']):.3f} s, "
+            f"ShardedKmerCounter {min(times['sharded']):.3f} s and {max(times['sharded']):.3f} s "
+            f"(in turns); K1 launches {launches['single']} and {launches['sharded']}; "
+            f"{len(flushes)} flushes, all_to_all key bytes "
+            f"{[nb for nb, _ in flushes]}, route + merge s "
+            f"{[round(t, 4) for _, t in flushes]}")
+
+        fre = os.path.join(bench, "PloidyFrost_output", "bench5m_allele_frequency.txt")
+        em_s = {"single": 0.0, "sharded": 0.0}
+        worst = 0.0
+        for gauss in range(1, 10):
+            fits = {}
+            for side in ("single", "sharded"):
+                model = GmmModel("cuda", group if side == "sharded" else None)
+                model.read_fre_file(fre, 0.0)
+                model.resize(gauss)
+                t0 = time.time()
+                model.em_iterate()
+                em_s[side] += time.time() - t0
+                fits[side] = np.concatenate([model.vars, model.weights, [model.log_likelihood]])
+            rel = np.abs(fits["sharded"] - fits["single"]) / np.abs(fits["single"])
+            worst = max(worst, float(rel.max()))
+        if worst > 1e-12:
+            raise AssertionError(f"sharded EM differs from the single-device EM by {worst:.3g}")
+        log(f"phase 11a: GMM fits on bench5m's {len(model.allele_fre)} frequencies, gauss 1..9, "
+            f"through the group: largest relative difference {worst:.3g} (tolerance 1e-12); "
+            f"em_iterate seconds single {em_s['single']:.3f}, sharded {em_s['sharded']:.3f}")
+
+        g = CDBGraph.from_gfa(os.path.join(bench, "bench5m.gfa"))
+        seeds = canonical_seeds(g)
+        search_s = {}
+        outs = {}
+        for side in ("single", "sharded"):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            outs[side] = search_seeds(g, seeds, "cuda", group if side == "sharded" else None)
+            search_s[side] = time.time() - t0
+        if not all(np.array_equal(x, y) for x, y in zip(outs["single"], outs["sharded"])):
+            raise AssertionError("the sharded search differs from search_seeds")
+        s1, b1 = find_superbubbles_device(g, 8, device="cuda")
+        s2, b2 = find_superbubbles_device(g, 8, device="cuda", group=group)
+        if not (np.array_equal(s1.flags, s2.flags) and len(b1) == len(b2)):
+            raise AssertionError("the sharded superbubble search found other bubbles")
+        log(f"phase 11a: superbubble search on bench5m ({len(seeds)} seeds, {len(b1)} bubbles) "
+            f"through the group equal to search_seeds; search seconds single "
+            f"{search_s['single']:.3f}, sharded {search_s['sharded']:.3f}")
+    finally:
+        dist.destroy_process_group()
+
+    if n_cards < 2:
+        log("phase 11b: one card visible: the run on several cards was not possible on this "
+            "machine (NCCL takes one rank a card)")
+        return res
+    n = min(4, n_cards)
+    d = os.path.join(work, f"devices{n}")
+    os.makedirs(d)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ploidyfrost_tpu_torch.cli", "pipeline", "-o", "bench5m", reads,
+         f"--devices={n}"], cwd=d, env=env, capture_output=True, text=True, timeout=900)
+    wall = time.time() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"pipeline --devices={n} returned {proc.returncode}:\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    mine = _file_set(d)
+    if not mine or not mine <= _file_set(bench):
+        raise AssertionError(f"pipeline --devices={n} wrote {sorted(mine)}")
+    for name in sorted(mine):
+        with open(os.path.join(d, name), "rb") as f1, open(os.path.join(bench, name), "rb") as f2:
+            if f1.read() != f2.read():
+                raise AssertionError(f"pipeline --devices={n}: {name} differs from one card's")
+    ranks = [line for line in proc.stdout.splitlines() if line.startswith("rank ")]
+    if len(ranks) != n or any("K1 launches 0," in line for line in ranks):
+        raise AssertionError(f"rank lines {ranks}")
+    log(f"phase 11b: `pipeline --devices={n}` on bench5m: {len(mine)} files byte-identical to "
+        f"one card's, wall {wall:.3f} s (process start and {n} ranks' start included)")
+    for line in ranks:
+        log(f"phase 11b: {line}")
+    res["devices"] = n
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1049,6 +1208,9 @@ def main() -> int:
     if "jax" in sys.modules or "ploidyfrost_tpu" in sys.modules:
         raise AssertionError("the port pulled in jax or ploidyfrost_tpu")
     baseline_cu = os.path.abspath(args.baseline_cu) if args.baseline_cu else None
+    # phases 1-10 on one card, however many the machine holds; phase 11
+    # asks for more with --devices=N
+    os.environ["PLOIDYFROST_DEVICES"] = "1"
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
 
@@ -1144,6 +1306,10 @@ def main() -> int:
 
     tracing("cuda", os.path.join(WORK, "tracing"), os.path.join(WORK, "golden"), bench)
     log("phase 10: tracing passed")
+
+    cards = multi_card(os.path.join(WORK, "multi_card"), bench,
+                       os.path.join(bench, "bench5m_reads.fa"))
+    log("phase 11: several cards passed")
     if "jax" in sys.modules or "ploidyfrost_tpu" in sys.modules:
         raise AssertionError("the port pulled in jax or ploidyfrost_tpu")
 
@@ -1160,6 +1326,7 @@ def main() -> int:
         "replaces": "ploidyfrost_tpu/kmer/pallas_extract.py:88",
         "launches": launches,
         "launches_multi3x5m": multi["launches"],
+        "launches_sharded_one_rank": cards["launches"],
         "max_abs_err": float(err),
         "ms": ms,
         "plain_ms": t["plain_ms"],

@@ -11,7 +11,8 @@ kernel (csrc/extract_canonical.cu); the counter's sort-collapse, the
 superbubble search, the EM loop and, on request, the link sort of graph
 construction are torch ops on the chosen device; graph construction,
 coloring, alignment and table output are host code (numpy and native
-C++).
+C++). On several GPUs (`--devices`, parallel/) one rank a card shares
+the counting, the superbubble search and the EM over torch.distributed.
 
 This package never imports jax or the JAX package. Entry points take a
 ``device`` argument (default ``"cuda"``) and raise when CUDA is asked

@@ -13,6 +13,13 @@ an analysis phase is computed in one call, by the first engine that can:
 `needleman_wunsch_batch` call. The host co-optimal traceback per pair
 follows in every case.
 
+The lanes are not split over the ranks of a --devices run
+(parallel/mesh.py): every rank keeps this engine order on its own
+device. The JAX package shards them over its mesh only inside one
+process and drops the mesh as soon as it runs in several
+(ploidyfrost_tpu/align/batch_nw.py:267-275); every run of this package
+on more than one device is several processes.
+
 The torch wavefront runs all pairs of a size tier at once: a loop over
 the 2T+1 anti-diagonals of a [lanes, T+1] skewed layout, each step
 computing one anti-diagonal of every pair, so the sequential DP

@@ -36,6 +36,8 @@ The work is split in two: `figure_tables` reads the tables, builds the
 tiers, fits the GMM on `device` and writes the two .tsv files, and needs
 no matplotlib; `draw_figures` draws the PNG files from its result and
 imports matplotlib when called. `make_figures` runs one after the other.
+With `group` (parallel/mesh.Group) the GMM fits split over the ranks and
+only rank 0 writes the tables and draws.
 """
 
 from __future__ import annotations
@@ -224,19 +226,20 @@ def _nrd0_density(data, xs):
     return kde(xs)
 
 
-def ll_curves(frequency, tiers, gauss_lower, gauss_upper, device="cuda"):
+def ll_curves(frequency, tiers, gauss_lower, gauss_upper, device="cuda", group=None):
     """Average log-likelihood vs candidate ploidy per tier — the live
     computation behind the notebook's pasted vectors
     (paper_figures.R:329-334): for each tier, fit the GMM at every
     gauss count g in [gauss_lower, gauss_upper] on that tier's allele
     frequencies (the exact EM of src/GmmModel.cpp via model/gmm.py, on
-    `device`) and record ll/N. Returns (ploidies, {label: [ll]})."""
+    `device`, or over `group`'s ranks) and record ll/N. Returns
+    (ploidies, {label: [ll]})."""
     from .model.gmm import GmmModel
 
     ploidies = list(range(gauss_lower + 1, gauss_upper + 2))
     curves = {}
     for label, mask in tiers:
-        model = GmmModel(device)
+        model = GmmModel(device, group)
         data = frequency["fre"][mask]
         data = data[np.isfinite(data)]
         model.read_data(data)
@@ -262,14 +265,17 @@ def figure_tables(
     gauss_upper: int = 9,
     with_model: bool = True,
     device="cuda",
+    group=None,
 ) -> dict:
     """Everything of the workflow that is not a picture: read the
     coverage tables, build the tiers, write {outprefix}_site_stats.tsv
     and, with with_model, fit the GMM on `device` and write
     {outprefix}_loglikelihood.tsv. Returns what `draw_figures` draws."""
     from . import resolve_device
+    from .parallel.mesh import is_primary
 
     device = resolve_device(device)
+    primary = is_primary(group)
     coverage, frequency = read_cov_tables(prefix, multi)
     cov_tiers = filter_tiers(coverage, multi, cramer)
     fre_tiers = filter_tiers(frequency, multi, cramer)
@@ -278,7 +284,7 @@ def figure_tables(
     header, rows = site_stats(
         coverage, cov_tiers, covs, ploidy, multi, names
     )
-    with open(f"{outprefix}_site_stats.tsv", "w") as f:
+    with open(f"{outprefix}_site_stats.tsv" if primary else os.devnull, "w") as f:
         f.write("\t".join(header) + "\n")
         for row in rows:
             f.write(
@@ -293,9 +299,9 @@ def figure_tables(
     ploidies, curves = [], {}
     if with_model:
         ploidies, curves = ll_curves(
-            frequency, fre_tiers, gauss_lower, gauss_upper, device
+            frequency, fre_tiers, gauss_lower, gauss_upper, device, group
         )
-        with open(f"{outprefix}_loglikelihood.tsv", "w") as f:
+        with open(f"{outprefix}_loglikelihood.tsv" if primary else os.devnull, "w") as f:
             f.write("filter\t" + "\t".join(map(str, ploidies)) + "\n")
             for label, lls in curves.items():
                 f.write(
@@ -422,6 +428,7 @@ def make_figures(
     gauss_upper: int = 9,
     with_model: bool = True,
     device="cuda",
+    group=None,
 ) -> int:
     """Run the full per-dataset workflow of paper_figures.R on any
     PloidyFrost output prefix. Writes {outprefix}_site_stats.tsv,
@@ -431,12 +438,16 @@ def make_figures(
     written and the result is 1."""
     tables = figure_tables(
         prefix, outprefix, covs, ploidy, multi, cramer, names,
-        gauss_lower, gauss_upper, with_model, device,
+        gauss_lower, gauss_upper, with_model, device, group,
     )
+    from .parallel.mesh import is_primary
+
+    if not is_primary(group):
+        return 0
     return draw_figures(tables, outprefix, covs, ploidy)
 
 
-def cmd_figures(argv, device="cuda") -> int:
+def cmd_figures(argv, device="cuda", group=None) -> int:
     """CLI: ploidyfrost-tpu-torch figures -i prefix -o out -c covs -p ploidy
     [--multi] [--cramer T] [--names a,b,...] [--no-model]
     [--gauss-low L --gauss-up U]."""
@@ -501,4 +512,5 @@ def cmd_figures(argv, device="cuda") -> int:
         gauss_upper=gu,
         with_model=with_model,
         device=device,
+        group=group,
     )

@@ -826,13 +826,14 @@ def _simplify_rebuild(g: CDBGraph, k: int, drop: np.ndarray) -> CDBGraph:
 
 
 def build_graph_from_reads(
-    paths, k: int, min_count: int = 1, device="cuda", link_device=None
+    paths, k: int, min_count: int = 1, device="cuda", link_device=None, group=None
 ):
-    """Count reads, threshold, compact, simplify. Returns (graph, counter)."""
+    """Count reads (over `group`'s ranks when given), threshold,
+    compact, simplify. Returns (graph, counter)."""
     from ..io.fastx import read_batches
-    from ..kmer.count import KmerCounter
+    from ..parallel.mesh import make_counter
 
-    counter = KmerCounter(k, device=device)
+    counter = make_counter(k, device, group)
     for batch in read_batches(paths, k):
         counter.add_reads(batch)
     km, ct = counter.arrays()

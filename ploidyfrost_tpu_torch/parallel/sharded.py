@@ -1,0 +1,325 @@
+# Ported from ploidyfrost_tpu/parallel/sharded.py onto torch.distributed.
+"""The count table, the superbubble search and the EM split over a
+process group (one rank per device, parallel/mesh.py).
+
+The reference's only parallelism is pthreads and mutexes in one address
+space (src/CDBG.cpp:1726-1777). Here, as in the JAX package, the work is
+bulk-synchronous with no locks:
+
+  * Counting (`ShardedKmerCounter`). Every rank reads the same batches
+    and runs K1 (kmer/extract.py) on its contiguous row slice of each
+    one, into a buffer of its own. At each flush it drops the invalid
+    windows, routes every key to its owner rank `hash_shard(key, world)`
+    with one `all_to_all_single` of the per-destination counts and one of
+    the keys (uneven splits), and merges what it receives into its own
+    table with the single-device sort-collapse (kmer/count.py:_collapse).
+    Each key lives on exactly one rank, so the histogram and the instance
+    count are one int64 `all_reduce`, and `arrays()` gathers the ragged
+    tables (lengths first, then a padded `all_gather`) and sorts once.
+  * EM (`build_sharded_em_step`, `build_sharded_ll_step`). Each rank sums
+    its slice of the allele frequencies in float64; one `all_reduce` a
+    reduction; the update and its rejection guard run on every rank.
+  * Superbubble search (`build_sharded_search_step`). The seeds split
+    into equal slices; each rank searches its own; `all_gather` brings
+    the five outputs to every rank, whose host replay then runs as on one
+    device.
+
+What the JAX version has and this one drops: the 2-D (data, shard) mesh
+(`make_mesh`, `balanced_mesh`), the two all_to_all hops over its axes,
+the fixed per-destination quotas and the overflow grow-and-replay. They
+exist for the TPU's 2-D interconnect and its static shapes. The port's
+tables have dynamic size (kmer/count.py), so one hop over the flat group
+with exact split sizes gives the same table with nothing to replay.
+
+Keys are int64 with the INT64_MAX sentinel. `hash_shard` reproduces the
+JAX package's uint64 splitmix64 bit for bit: the multiplies wrap alike in
+int64, every right shift is masked (torch's are arithmetic), and the
+modulo is taken on the unsigned value.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..kmer.count import DEFAULT_COUNTER_MAX, _collapse
+from ..kmer.extract import extract_canonical_into
+from ..kmer.pack import SENTINEL
+from .mesh import Group
+
+_MIX1 = 0xBF58476D1CE4E5B9 - (1 << 64)  # the splitmix64 constants as int64
+_MIX2 = 0x94D049BB133111EB - (1 << 64)
+
+
+def _srl(x: torch.Tensor, s: int) -> torch.Tensor:
+    """x >> s on the uint64 bits of int64 x (a logical shift)."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def _mix64(x: torch.Tensor) -> torch.Tensor:
+    """splitmix64 finalizer: decorrelates the owner rank from the
+    k-mer's lexicographic prefix so the ranks stay balanced."""
+    x = (x ^ _srl(x, 30)) * _MIX1
+    x = (x ^ _srl(x, 27)) * _MIX2
+    return x ^ _srl(x, 31)
+
+
+def hash_shard(kmers: torch.Tensor, n_shard: int) -> torch.Tensor:
+    """Owner in [0, n_shard) of each int64 key: the uint64 mix modulo
+    n_shard, as hi * 2^32 + lo (n_shard < 2^31 keeps it inside int64)."""
+    h = _mix64(kmers)
+    hi, lo = _srl(h, 32), h & 0xFFFFFFFF
+    return ((hi % n_shard) * ((1 << 32) % n_shard) + lo % n_shard) % n_shard
+
+
+def rank_rows(n: int, group: Group) -> tuple[int, int]:
+    """[lo, hi) of this rank's contiguous slice when n items split into
+    ceil(n / world) a rank (the last ranks may get fewer, or none)."""
+    per = -(-n // group.world)
+    lo = min(group.rank * per, n)
+    return lo, min(lo + per, n)
+
+
+def all_sum(group: Group, x: torch.Tensor) -> torch.Tensor:
+    """x summed over the ranks, in place; returns x."""
+    dist.all_reduce(x)
+    return x
+
+
+def _all_gather_cat(group: Group, x: torch.Tensor) -> torch.Tensor:
+    """Every rank's x (one shape on every rank), concatenated in rank
+    order on dim 0."""
+    parts = [torch.empty_like(x) for _ in range(group.world)]
+    dist.all_gather(parts, x.contiguous())
+    return torch.cat(parts)
+
+
+class ShardedKmerCounter:
+    """KmerCounter-compatible streaming counter over a process group.
+
+    Same surface as kmer.count.KmerCounter (add_reads / arrays /
+    histogram / write_histogram / total_kmers / num_unique), so the
+    pipeline entry points take either (mesh.make_counter). Every rank
+    must make the same calls with the same batches: the flushes and the
+    finalization are collectives. The table depends only on the k-mer
+    multiset, not on the group's size.
+    """
+
+    def __init__(
+        self,
+        group: Group,
+        k: int,
+        counter_max: int = DEFAULT_COUNTER_MAX,
+        buffer_capacity: int | None = None,
+    ):
+        if not 1 <= k <= 31:
+            raise ValueError("k must be in [1, 31] for single-word packing")
+        self.group = group
+        self.device = group.device
+        if buffer_capacity is None:
+            buffer_capacity = (32 << 20) if self.device.type == "cuda" else (8 << 20)
+        self.k = k
+        self.counter_max = counter_max
+        self._tkm = torch.empty(0, dtype=torch.int64, device=self.device)
+        self._tct = torch.empty(0, dtype=torch.int64, device=self.device)
+        self._buf = torch.empty(buffer_capacity, dtype=torch.int64, device=self.device)
+        self._fill = 0  # keys in this rank's buffer
+        # buffer slots the batches since the last flush may take on ANY
+        # rank (full slices): the flush decision, identical on every rank
+        self._slots = 0
+        self._n_valid_dev = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._total_local = 0
+        self._finalized = None  # (km, ct, hist, total) until the next add_reads
+        # (key bytes this rank sent, host seconds of route + merge) a flush
+        self.flush_log: list[tuple[int, float]] = []
+
+    # -- ingestion -------------------------------------------------------
+
+    def add_reads(self, codes):
+        """Count the canonical k-mers of this rank's row slice of a
+        [B, L] uint8 code batch (numpy array or tensor) that every rank
+        passes whole."""
+        codes = torch.as_tensor(codes)
+        B, L = codes.shape
+        n_row = L - self.k + 1
+        if n_row <= 0:
+            return
+        self._finalized = None
+        per = -(-B // self.group.world)
+        cap = self._buf.numel()
+        if per * n_row > cap:
+            # a slice larger than the whole buffer: feed the batch in blocks
+            step = max(cap // n_row, 1) * self.group.world
+            for r in range(0, B, step):
+                self.add_reads(codes[r : r + step])
+            return
+        if self._slots + per * n_row > cap:
+            self.flush()
+        lo, hi = rank_rows(B, self.group)
+        if hi > lo:
+            dev = codes[lo:hi].to(self.device).contiguous()
+            extract_canonical_into(dev, self.k, self._buf, self._fill, count=self._n_valid_dev)
+            self._fill += (hi - lo) * n_row
+        self._slots += per * n_row
+
+    # -- route and merge -------------------------------------------------
+
+    def flush(self):
+        """Route the buffered keys to their owners and merge what this
+        rank receives into its table (a collective)."""
+        if self._slots == 0:
+            return
+        t0 = time.perf_counter()
+        keys = self._buf[: self._fill]
+        keys = keys[keys != SENTINEL]
+        owner = hash_shard(keys, self.group.world)
+        order = torch.argsort(owner)
+        send = keys[order]
+        send_counts = torch.bincount(owner, minlength=self.group.world)
+        recv_counts = torch.empty_like(send_counts)
+        dist.all_to_all_single(recv_counts, send_counts)
+        recv = torch.empty(int(recv_counts.sum()), dtype=torch.int64, device=self.device)
+        dist.all_to_all_single(
+            recv, send,
+            output_split_sizes=recv_counts.tolist(),
+            input_split_sizes=send_counts.tolist(),
+        )
+        self._tkm, self._tct = _collapse(self._tkm, self._tct, recv, self.counter_max)
+        self._fill = self._slots = 0
+        self._total_local += int(self._n_valid_dev)  # waits for the merge
+        self._n_valid_dev.zero_()
+        self.flush_log.append((8 * send.numel(), time.perf_counter() - t0))
+
+    # -- finalization / views ---------------------------------------------
+
+    def _finalize(self):
+        """Flush, reduce the histogram and the instance count, and gather
+        the global sorted table, once until the next add_reads: every
+        rank must enter the collectives equally often."""
+        if self._finalized is not None:
+            return self._finalized
+        self.flush()
+        cm = self.counter_max
+        hist = torch.bincount(self._tct.clamp(0, cm), minlength=cm + 1)[: cm + 1]
+        total = torch.tensor([self._total_local], dtype=torch.int64, device=self.device)
+        red = all_sum(self.group, torch.cat([hist, total]))
+        n = torch.tensor([self._tkm.numel()], dtype=torch.int64, device=self.device)
+        n_max = int(_all_gather_cat(self.group, n).max())
+        pk = torch.full((n_max,), SENTINEL, dtype=torch.int64, device=self.device)
+        pc = torch.zeros(n_max, dtype=torch.int64, device=self.device)
+        pk[: self._tkm.numel()] = self._tkm
+        pc[: self._tct.numel()] = self._tct
+        all_km = _all_gather_cat(self.group, pk)
+        all_ct = _all_gather_cat(self.group, pc)
+        live = all_km != SENTINEL
+        km, order = torch.sort(all_km[live])
+        ct = all_ct[live][order]
+        hist_np = red[:-1].cpu().numpy()
+        hist_np[0] = 0
+        self._finalized = (
+            km.cpu().numpy().view(np.uint64),
+            ct.cpu().numpy(),
+            hist_np,
+            int(red[-1]),
+        )
+        return self._finalized
+
+    @property
+    def total_kmers(self) -> int:
+        """Total (valid) k-mer instances over all ranks."""
+        return self._finalize()[3]
+
+    @property
+    def num_unique(self) -> int:
+        return len(self._finalize()[0])
+
+    def arrays(self):
+        """(sorted unique canonical k-mers uint64, saturated counts
+        int64) of the whole table as host numpy arrays, on every rank."""
+        km, ct, _, _ = self._finalize()
+        return km, ct
+
+    def histogram(self, max_cov: int | None = None) -> np.ndarray:
+        """hist[c] = number of distinct k-mers with count c clamped to
+        max_cov, c in 1..max_cov (KmerCounter.histogram's meaning)."""
+        if max_cov is None:
+            max_cov = self.counter_max
+        full = self._finalize()[2]
+        if max_cov >= len(full) - 1:
+            return np.concatenate([full, np.zeros(max_cov + 1 - len(full), np.int64)])
+        hist = full[: max_cov + 1].copy()
+        hist[max_cov] = full[max_cov:].sum()
+        return hist
+
+    def write_histogram(self, path: str, max_cov: int = 10000):
+        """Text histogram file: "<cov>\\t<count>" per line, cov = 1..max_cov."""
+        hist = self.histogram(max_cov)
+        with open(path, "w") as f:
+            for cov in range(1, max_cov + 1):
+                f.write(f"{cov}\t{int(hist[cov]) if cov < len(hist) else 0}\n")
+
+
+def sharded_count(group: Group, k: int, code_batches, **kw):
+    """Count canonical k-mers of `code_batches` over the group (see
+    ShardedKmerCounter). Returns (kmers sorted uint64, counts int64,
+    hist int64[256] with counts above 255 in the last bin, n_instances),
+    the JAX package's sharded_count result."""
+    counter = ShardedKmerCounter(group, k, **kw)
+    for b in code_batches:
+        counter.add_reads(b)
+    km, ct = counter.arrays()
+    return km, ct, counter.histogram(255), counter.total_kmers
+
+
+def build_sharded_em_step(group: Group):
+    """EM step over rank-sliced allele frequencies: (af slice, means,
+    weights, variances, m_thre, n_thre) -> (variances, weights, ll).
+    Each rank sums its slice in float64, one all_reduce a reduction,
+    and the update and its rejection guard run on every rank
+    (src/GmmModel.cpp:275-334)."""
+    from ..model.gmm import _em_body, _ll_body
+
+    def step(af, means, weights, variances, m_thre, n_thre):
+        v, w = _em_body(af, means, weights, variances, m_thre, n_thre, group)
+        return v, w, _ll_body(af, means, w, v, group)
+
+    return step
+
+
+def build_sharded_ll_step(group: Group):
+    """Log-likelihood of rank-sliced allele frequencies: (af slice,
+    means, weights, variances) -> ll, summed over the ranks."""
+    from ..model.gmm import _ll_body
+
+    def step(af, means, weights, variances):
+        return _ll_body(af, means, weights, variances, group)
+
+    return step
+
+
+def build_sharded_search_step(group: Group):
+    """Superbubble search over the group: (seeds [S] int64, succ_node
+    [n, 2, 4] int64, both on this rank's device) -> the five outputs of
+    bubble/batched._search_batched for all S seeds, on every rank.
+
+    Seeds are independent (the search reads only the adjacency,
+    src/CDBG.cpp:2643-2823), so they split into ceil(S / world) a rank,
+    the last slice padded with the last seed; the host replay then runs
+    unchanged on every rank."""
+    from ..bubble.batched import MAX_CHUNK, _search_batched
+
+    def step(seeds, succ_node):
+        n = seeds.numel()
+        per = -(-n // group.world)
+        pad = seeds[-1:].expand(per * group.world - n)
+        mine = torch.cat([seeds, pad])[group.rank * per : (group.rank + 1) * per]
+        outs = [
+            _search_batched(mine[off : off + MAX_CHUNK], succ_node)
+            for off in range(0, per, MAX_CHUNK)
+        ]
+        return [_all_gather_cat(group, torch.cat(x))[:n] for x in zip(*outs)]
+
+    return step

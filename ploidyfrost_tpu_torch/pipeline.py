@@ -19,6 +19,12 @@ host code (the alignment DP moves to the device only where the native
 NW kernel is missing, align/batch_nw.py). Wall times of the stages land
 in `opt.stage_seconds`; with PLOIDYFROST_TRACE=<dir> the two analysis
 phases are traced (util/profiling.py).
+
+All also take `group` (parallel/mesh.Group, one rank per device; then
+`device` is the rank's own). The counter, the superbubble search and
+the EM split over the ranks; every rank computes the same tables, only
+rank 0 writes, and the other ranks wait (`sync`) before they read back
+what rank 0 wrote.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import time
 import numpy as np
 
 from . import resolve_device
+from .parallel.mesh import is_primary, make_counter, sync
 
 
 def _log(msg: str):
@@ -167,7 +174,7 @@ def write_graph_info_colored(g, colors, outpre: str, verbose: bool):
         f.write(lines)
 
 
-def run_colored_analysis(opt, device="cuda") -> int:
+def run_colored_analysis(opt, device="cuda", group=None) -> int:
     """The colored main run (src/Main.cpp:777-813): ColoredCDBG read,
     per-color KMC database open, setUnitigId, findSuperBubble,
     colored ploidyEstimation."""
@@ -213,9 +220,11 @@ def run_colored_analysis(opt, device="cuda") -> int:
         _log(f"CCDBG:: Database {i} Minimum Coverage:{lo}")
         _log(f"CCDBG:: Maximum Coverage:{up}")
 
+    primary = is_primary(group)
     os.makedirs("PloidyFrost_output", exist_ok=True)
-    g.set_unitig_id(opt.outprefix)
-    write_graph_info_colored(g, colors, opt.outprefix, opt.verbose)
+    if primary:
+        g.set_unitig_id(opt.outprefix)
+        write_graph_info_colored(g, colors, opt.outprefix, opt.verbose)
 
     # overlap host coverage probes + corpus decode with the device
     # search (same latency-hiding as run_analysis; the reference
@@ -234,9 +243,12 @@ def run_colored_analysis(opt, device="cuda") -> int:
     _log("CCDBG::findSuperBubble(): Finding superbubbles")
     t0 = time.time()
     try:
-        with maybe_trace("findSuperBubble"):
-            state, bubbles = find_superbubbles(g, opt.complex_size, colors, device=dev)
-        write_superbubble_file(g, bubbles, opt.outprefix)
+        with maybe_trace("findSuperBubble", primary):
+            state, bubbles = find_superbubbles(
+                g, opt.complex_size, colors, device=dev, group=group
+            )
+        if primary:
+            write_superbubble_file(g, bubbles, opt.outprefix)
         times["superbubbles"] = time.time() - t0
         _log(f"CCDBG::findSuperBubble(): Real time : {times['superbubbles']}s")
         _log(f"CCDBG::findSuperBubble(): {len(bubbles)}  SuperBubbles Found")
@@ -252,14 +264,15 @@ def run_colored_analysis(opt, device="cuda") -> int:
         umean, uok = cov_future.result()
     finally:
         pool.shutdown()
-    with maybe_trace("ploidyEstimation"):
+    with maybe_trace("ploidyEstimation", primary):
         emissions, window_strings, window_colors = analyze_bubbles_colored(
             g, colors, state, umean, uok, opt.match, opt.mismatch, opt.gap,
             device=dev,
         )
         wcov = window_coverage_colored(dbs, window_strings, cutoffs)
         stats = write_outputs_colored(
-            emissions, wcov, window_colors, colors.n_colors, opt.outprefix
+            emissions, wcov, window_colors, colors.n_colors, opt.outprefix,
+            **({} if primary else {"outdir": None}),
         )
     times["sites"] = time.time() - t0
     _log(f"CCDBG::PloidyEstimation(): Real time : {times['sites']}s")
@@ -276,7 +289,7 @@ def run_colored_analysis(opt, device="cuda") -> int:
     return 0
 
 
-def run_analysis(opt, device="cuda") -> int:
+def run_analysis(opt, device="cuda", group=None) -> int:
     """The reference main run (src/Main.cpp:764-853): graph load,
     setUnitigId, findSuperBubble, ploidyEstimation."""
     dev = resolve_device(device)
@@ -301,9 +314,11 @@ def run_analysis(opt, device="cuda") -> int:
 
     db = load_count_db(opt.db, g.k)
 
+    primary = is_primary(group)
     os.makedirs("PloidyFrost_output", exist_ok=True)
-    g.set_unitig_id(opt.outprefix)
-    g.write_graph_info(opt.outprefix)
+    if primary:
+        g.set_unitig_id(opt.outprefix)
+        g.write_graph_info(opt.outprefix)
     if opt.verbose:
         _log(">>>>>>>>>Graph Information>>>>>>>>>")
         _log(
@@ -330,9 +345,10 @@ def run_analysis(opt, device="cuda") -> int:
 
     _log("findSuperBubble(): Finding superbubbles")
     t0 = time.time()
-    with maybe_trace("findSuperBubble"):
-        state, bubbles = find_superbubbles(g, opt.complex_size, device=dev)
-    write_superbubble_file(g, bubbles, opt.outprefix)
+    with maybe_trace("findSuperBubble", primary):
+        state, bubbles = find_superbubbles(g, opt.complex_size, device=dev, group=group)
+    if primary:
+        write_superbubble_file(g, bubbles, opt.outprefix)
     times["superbubbles"] = time.time() - t0
     _log(f"findSuperBubble(): Real time : {times['superbubbles']}s")
     _log(f"findSuperBubble(): {len(bubbles)}  SuperBubbles Found")
@@ -344,7 +360,7 @@ def run_analysis(opt, device="cuda") -> int:
         ucov, umin = cov_future.result()
     finally:
         pool.shutdown()
-    with maybe_trace("ploidyEstimation"):
+    with maybe_trace("ploidyEstimation", primary):
         emissions, window_strings = analyze_bubbles(
             g,
             state,
@@ -360,7 +376,9 @@ def run_analysis(opt, device="cuda") -> int:
         wcov = window_coverage(
             db, window_strings, opt.coverage_lower, opt.coverage_upper
         )
-        stats = write_outputs(emissions, wcov, opt.outprefix)
+        stats = write_outputs(
+            emissions, wcov, opt.outprefix, **({} if primary else {"outdir": None})
+        )
     times["sites"] = time.time() - t0
     _log(f"PloidyEstimation(): Real time : {times['sites']}s")
     a = stats["allele"]
@@ -376,14 +394,14 @@ def run_analysis(opt, device="cuda") -> int:
     return 0
 
 
-def count_sample(files, k: int, dev, trim=None):
-    """Count one sample's reads on `dev`. Returns (counter, seconds
+def count_sample(files, k: int, dev, trim=None, group=None):
+    """Count one sample's reads on `dev`, or over `group`'s ranks (each
+    reads every batch and counts its slice). Returns (counter, seconds
     spent waiting for the reader)."""
     from .io.fastx import read_batches
-    from .kmer.count import KmerCounter
 
     t_read = 0.0
-    counter = KmerCounter(k, device=dev)
+    counter = make_counter(k, dev, group)
     batches = read_batches(files, k, trim=trim)
     while True:
         tr = time.time()
@@ -395,13 +413,34 @@ def count_sample(files, k: int, dev, trim=None):
     return counter, t_read
 
 
+def _log_ranks(group, times: dict, log: list) -> None:
+    """On a group: rank 0 logs every rank's K1 launches, stage seconds
+    and counter flushes (`log`: ShardedKmerCounter.flush_log entries,
+    key bytes sent and route + merge seconds)."""
+    if group is None:
+        return
+    import torch.distributed as dist
+
+    from .kmer import extract
+
+    mine = {"group init s": round(group.init_s, 4), "K1 launches": extract.LAUNCHES,
+            "flushes": len(log),
+            "all_to_all bytes": sum(b for b, _ in log),
+            "route+merge s": round(sum(t for _, t in log), 4),
+            **{f"{k} s": round(v, 4) for k, v in times.items()}}
+    rows = [None] * group.world
+    dist.all_gather_object(rows, mine)
+    for r, row in enumerate(rows):
+        _log(f"rank {r}: " + ", ".join(f"{k} {v}" for k, v in row.items()))
+
+
 def _link_device(opt, dev):
     """The device of the graph-construction link step: `dev` under
     --device-build, else None (the native host kernel)."""
     return dev if opt.device_build else None
 
 
-def build_graph_cli(opt, device="cuda") -> int:
+def build_graph_cli(opt, device="cuda", group=None) -> int:
     """Native compacted-DBG construction from reads (replaces
     `Bifrost build -i -d -k`, script/pipeline/4.bifrost:4)."""
     dev = resolve_device(device)
@@ -417,16 +456,18 @@ def build_graph_cli(opt, device="cuda") -> int:
         min_count=max(1, opt.coverage_lower if opt.hist else 1),
         device=dev,
         link_device=_link_device(opt, dev),
+        group=group,
     )
     _log(
         f"build: {len(g)} unitigs, {g.nb_kmers()} kmers, "
         f"{g.total_length()} bp in {time.time() - t0:.1f}s"
     )
-    g.write_gfa(opt.outprefix + ".gfa")
+    if is_primary(group):
+        g.write_gfa(opt.outprefix + ".gfa")
     return 0
 
 
-def build_colored_graph_cli(opt, device="cuda") -> int:
+def build_colored_graph_cli(opt, device="cuda", group=None) -> int:
     """Native COLORED compacted-DBG construction (replaces
     `Bifrost build -i -d -k 25 -c`, script/pipeline/run-multisample.sh).
     Each positional argument is one sample (comma-separated files);
@@ -444,7 +485,7 @@ def build_colored_graph_cli(opt, device="cuda") -> int:
     names = []
     for sample in opt.inputs:
         files = sample.split(",")
-        counter, _ = count_sample(files, opt.k, dev)
+        counter, _ = count_sample(files, opt.k, dev, group=group)
         sample_kmers.append(counter.arrays()[0])
         names.append(files[0])
     g = simplify(
@@ -458,12 +499,13 @@ def build_colored_graph_cli(opt, device="cuda") -> int:
         f"build -c: {len(g)} unitigs, {g.nb_kmers()} kmers, "
         f"{colors.n_colors} colors in {time.time() - t0:.1f}s"
     )
-    g.write_gfa(opt.outprefix + ".gfa")
-    save_color_matrix(opt.outprefix + ".colors.npz", colors)
+    if is_primary(group):
+        g.write_gfa(opt.outprefix + ".gfa")
+        save_color_matrix(opt.outprefix + ".colors.npz", colors)
     return 0
 
 
-def run_multisample_pipeline_cli(opt, device="cuda") -> int:
+def run_multisample_pipeline_cli(opt, device="cuda", group=None) -> int:
     """Native end-to-end multi-sample run (replaces
     script/pipeline/run-multisample.sh): per-sample count + cutoffs ->
     masked k-mer union -> colored graph -> colored analysis -> model.
@@ -483,22 +525,25 @@ def run_multisample_pipeline_cli(opt, device="cuda") -> int:
         return 1
     times = opt.stage_seconds
     times["read"] = times["count"] = times["build_graph"] = 0.0
+    flushes = []
     pre = opt.outprefix
+    primary = is_primary(group)
     filtered = []
     names = []
     cutoffs = []
     db_list_path = pre + ".kmc_list.txt"
-    with open(db_list_path, "w") as dblist, open(
-        pre + ".coverage_cutoff.txt", "w"
+    with open(db_list_path if primary else os.devnull, "w") as dblist, open(
+        pre + ".coverage_cutoff.txt" if primary else os.devnull, "w"
     ) as covfile:
         for i, sample in enumerate(opt.inputs):
             files = sample.split(",")
             t0 = time.time()
             counter, t_read = count_sample(
-                files, opt.k, dev, trim=opt.trim
+                files, opt.k, dev, trim=opt.trim, group=group
             )
-            counter.write_histogram(f"{pre}.s{i}.hist.txt")
             hist = counter.histogram(10000)
+            if primary:
+                counter.write_histogram(f"{pre}.s{i}.hist.txt")
             times["read"] += t_read
             times["count"] += time.time() - t0 - t_read
             t0 = time.time()
@@ -506,8 +551,11 @@ def run_multisample_pipeline_cli(opt, device="cuda") -> int:
             upper = cutoff_upper_from_counts(list(hist[1:]), opt.frequency)
             _log(f"pipeline-multi: sample {i} cutoffs L={lower} U={upper}")
             km, ct = counter.arrays()
+            if group is not None:
+                flushes += counter.flush_log
             del counter  # frees the sample's device table and buffer
-            np.savez(f"{pre}.s{i}.kmers.npz", kmers=km, counts=ct, k=opt.k)
+            if primary:
+                np.savez(f"{pre}.s{i}.kmers.npz", kmers=km, counts=ct, k=opt.k)
             dblist.write(f"{pre}.s{i}.kmers.npz\n")
             covfile.write(f"{lower}\t{upper}\n")
             cutoffs.append((lower, upper))
@@ -526,16 +574,19 @@ def run_multisample_pipeline_cli(opt, device="cuda") -> int:
     tc = time.time()
     colors = color_graph(g, filtered, names)
     times["color_graph"] = time.time() - tc
-    g.write_gfa(pre + ".gfa")
-    save_color_matrix(pre + ".colors.npz", colors)
+    if primary:
+        g.write_gfa(pre + ".gfa")
+        save_color_matrix(pre + ".colors.npz", colors)
+    sync(group)  # the graph, colors and count tables are on disk
     times["build_graph"] += time.time() - t0
     opt.graphfile = pre + ".gfa"
     opt.colorfile = pre + ".colors.npz"
     opt.db = db_list_path
     opt.coverage_vec = cutoffs
-    rc = run_colored_analysis(opt, dev)
+    rc = run_colored_analysis(opt, dev, group)
     if rc:
         return rc
+    sync(group)  # the allele frequency table is on disk
     t0 = time.time()
     ploidy = run_model(
         pre,
@@ -550,13 +601,15 @@ def run_multisample_pipeline_cli(opt, device="cuda") -> int:
         m_threshold=opt.mthreshold,
         n_threshold=opt.nthreshold,
         device=dev,
+        group=group,
     )
     times["model"] = time.time() - t0
     _log(f"estimated ploidy level is : {int(ploidy)}")
+    _log_ranks(group, times, flushes)
     return 0
 
 
-def run_pipeline_cli(opt, device="cuda") -> int:
+def run_pipeline_cli(opt, device="cuda", group=None) -> int:
     """reads -> count -> graph -> bubbles -> variants -> model, one shot
     (replaces script/pipeline/run.sh). Returns 0, or 1 on bad input."""
     dev = resolve_device(device)
@@ -569,12 +622,15 @@ def run_pipeline_cli(opt, device="cuda") -> int:
         return 1
     times = opt.stage_seconds
 
+    primary = is_primary(group)
     t0 = time.time()
     counter, t_read = count_sample(
-        opt.inputs, opt.k, dev, trim=opt.trim
+        opt.inputs, opt.k, dev, trim=opt.trim, group=group
     )
-    counter.write_histogram(opt.outprefix + ".hist.txt")
+    flushes = counter.flush_log if group is not None else []
     hist = counter.histogram(10000)
+    if primary:
+        counter.write_histogram(opt.outprefix + ".hist.txt")
     times["read"] = t_read
     times["count"] = time.time() - t0 - t_read
     lower = max(10, cutoff_lower_from_counts(list(hist[1:])))
@@ -593,14 +649,17 @@ def run_pipeline_cli(opt, device="cuda") -> int:
         ),
         opt.k,
     )
-    g.write_gfa(opt.outprefix + ".gfa")
-    np.savez(opt.outprefix + ".kmers.npz", kmers=km, counts=ct, k=opt.k)
+    if primary:
+        g.write_gfa(opt.outprefix + ".gfa")
+        np.savez(opt.outprefix + ".kmers.npz", kmers=km, counts=ct, k=opt.k)
+    sync(group)  # the graph and the count table are on disk
     times["build_graph"] = time.time() - t0
     opt.graphfile = opt.outprefix + ".gfa"
     opt.db = opt.outprefix + ".kmers.npz"
-    rc = run_analysis(opt, dev)
+    rc = run_analysis(opt, dev, group)
     if rc:
         return rc
+    sync(group)  # the allele frequency table is on disk
     t0 = time.time()
     ploidy = run_model(
         opt.outprefix,
@@ -615,7 +674,9 @@ def run_pipeline_cli(opt, device="cuda") -> int:
         m_threshold=opt.mthreshold,
         n_threshold=opt.nthreshold,
         device=dev,
+        group=group,
     )
     times["model"] = time.time() - t0
     _log(f"estimated ploidy level is : {int(ploidy)}")
+    _log_ranks(group, times, flushes)
     return 0

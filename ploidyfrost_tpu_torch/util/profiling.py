@@ -46,13 +46,14 @@ def _trace(trace_dir: str, name: str):
 
 
 @contextlib.contextmanager
-def maybe_trace(name: str):
+def maybe_trace(name: str, enabled: bool = True):
     """torch.profiler trace for one pipeline phase when
-    PLOIDYFROST_TRACE=<dir> is set; free otherwise. The analysis
-    entry points wrap their phases with this — the reference-parity log
-    lines stay untouched."""
+    PLOIDYFROST_TRACE=<dir> is set and `enabled`; free otherwise. The
+    analysis entry points wrap their phases with this — the
+    reference-parity log lines stay untouched — and pass enabled=False
+    on every rank of a group but rank 0, which alone writes the file."""
     trace_dir = os.environ.get("PLOIDYFROST_TRACE")
-    if not trace_dir:
+    if not trace_dir or not enabled:
         yield
         return
     with _trace(trace_dir, name):

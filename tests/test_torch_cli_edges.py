@@ -1,6 +1,6 @@
 """CLI edge cases of the torch port (the cases of tests/test_cli_edges.py
 with --device=cpu), the dispatch of the four post-processing
-subcommands, and the rejection of the JAX package's --devices flag."""
+subcommands, and --devices refused where no card is visible."""
 
 import os
 
@@ -142,9 +142,23 @@ def test_post_processing_subcommands_dispatch(cmd, tmp_path, monkeypatch):
     ["model", "--devices", "-g", "af.txt"],
 ], ids=lambda a: " ".join(a[:2]))
 def test_devices_flag_is_rejected(args, capsys, tmp_path, monkeypatch):
-    """--devices[=N] is the JAX package's mesh flag; this package runs on
-    one device and rejects it as it rejects any unknown option."""
+    """--devices[=N] is the CLI's own flag (parallel/mesh.py), never an
+    unknown option. On a host without CUDA, with --device=cuda (the
+    default), every form of it is refused before any work: a count above
+    the visible cards (none) with the JAX package's message, one device
+    (or auto, which finds no card) because CUDA is absent. Runs on
+    several devices are tested in tests/test_torch_cli_mesh.py."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
     monkeypatch.chdir(tmp_path)
-    assert main([*args, "--device=cpu"]) == 1
-    assert "Invalid option" in capsys.readouterr().out
+    n = max((int(a.split("=")[1]) for a in args if a.startswith("--devices=")), default=1)
+    if n > 1:
+        with pytest.raises(SystemExit, match=f"--devices={n} but only 0 devices visible"):
+            main(args)
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(args)
+    assert "Invalid option" not in capsys.readouterr().out
     assert os.listdir(tmp_path) == []

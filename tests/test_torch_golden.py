@@ -113,7 +113,8 @@ def test_port_imports_no_jax():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    for name in ("graph.colors", "io.bfg", "io.kmc", "sites.emit_colored"):
+    for name in ("graph.colors", "io.bfg", "io.kmc", "sites.emit_colored", "parallel.mesh",
+                 "parallel.sharded"):
         assert os.path.exists(os.path.join(ROOT, "ploidyfrost_tpu_torch", *name.split(".")) + ".py")
 
 
