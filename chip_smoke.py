@@ -12,7 +12,14 @@ Phases (any failure exits non-zero):
      is no multiple of a tile's rows and one that gives each CTA several
      tiles, output offsets {0, 1, 7}; the fused valid count, accumulated
      over two calls, equal to the plain count; nothing written outside
-     the slice;
+     the slice; then the superbubble search kernel bit-exact against its
+     plain version on the card, all five outputs, on the graph classes
+     of tests/test_torch_search.py (genome-like, dense tangles, the
+     circular cycle-exit graph) at the caps (ms, mstk, max_steps) of
+     SEARCH_CAPS (the default and small ones that force overflow and
+     unfinished lanes), every outcome class reached, and on an empty
+     seed list; the same check on bench5m's and multi3x5m's real seeds
+     runs in phases 4 and 6, once their graphs exist;
   3. golden: regenerate the single_diploid reads (100 kb diploid, k=25)
      and run the port's `pipeline` on the card: cutoffs (10, 37), the 12
      output tables byte-identical to tests/golden/single_diploid, the
@@ -21,7 +28,10 @@ Phases (any failure exits non-zero):
      reads at 25x, seed 7) through `pipeline` on the card, ploidy 2, with
      the native host libraries that loaded (graph construction must),
      per-stage wall times, K1's launches on that run, peak device
-     memory; then K1 at the main path's batch shape: the per-launch
+     memory, the search kernel's launches on that run; the search
+     kernel at bench5m's seeds: median and min-max a launch (bare and
+     through search_batched), the plain version's time, search_seeds
+     end to end, the bound; then K1 at the main path's batch shape: the per-launch
      median and min-max of the bare kernel and of the main-path call
      (with the fused count), against its bound and its plain version's
      time, K1 back to back in a CUDA graph, and, with --baseline-cu, an
@@ -74,8 +84,8 @@ Phases (any failure exits non-zero):
      phase traces written, CUDA kernels in findSuperBubble.json; its
      sites pass is host code while the native NW kernel runs, so
      ploidyEstimation.json holds kernels only in phase 9's run); then
-     bench5m's superbubble search under the profiler and the card's
-     busy share of it;
+     bench5m's superbubble search under the profiler: its kernels (the
+     search kernel must be among them) and the card's busy share of it;
  11. several cards (parallel/): the visible card count; (a) a one-rank
      NCCL group on cuda:0: ShardedKmerCounter over bench5m's reads with
      the table, histogram and instance count of KmerCounter on the same
@@ -83,15 +93,18 @@ Phases (any failure exits non-zero):
      flushes (key bytes, route + merge seconds); the GMM fits on
      bench5m's frequencies (gauss 1..9) through the group within 1e-12
      relative of the single-device fits; the superbubble search through
-     the group equal to search_seeds and the bubbles equal; (b) with two
+     the group equal to search_seeds and the bubbles equal, the search
+     kernel launched through the group; (b) with two
      or more cards, `pipeline --devices=min(4, cards)` on bench5m as a
      user runs it (python -m ploidyfrost_tpu_torch.cli): every file it
      writes byte-identical to phase 4's, every rank's stage seconds and
-     K1 launches printed; with one card, one line that says the run on
-     several cards was not possible here.
+     K1 and search launches printed (none may be 0); with one card, one
+     line that says the run on several cards was not possible here.
 
 Phases 1-10 run on one card (PLOIDYFROST_DEVICES=1 for the CLI calls),
 whatever the machine holds. All five native host libraries must load.
+Every pipeline path (phases 3-6) and the one-rank group's search must
+launch both kernels.
 
 The line before the last is the kernel table as one JSON object; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -389,21 +402,195 @@ def time_extract(baseline_lib: str | None, B=16384, L=160, k=25, reps=200) -> di
     return res
 
 
+# (ms, mstk, max_steps) of the search kernel's checks: the default caps,
+# then small ones that force seen and stack overflow and lanes that run
+# out of steps
+SEARCH_CAPS = [(32, 48, 192), (8, 8, 1), (8, 8, 2), (8, 8, 16), (16, 12, 64), (32, 48, 1),
+               (32, 48, 2)]
+SEARCH_OUTPUTS = ("status", "psec", "nseen", "seen", "cyc")
+
+
+def _search_graphs():
+    """The random graph classes of tests/test_torch_search.py, built by
+    the port: genome-like graphs with het SNPs, dense random tangles,
+    and a circular genome whose bubble exit loops back to its entrance."""
+    from ploidyfrost_tpu_torch.graph.construct import _canon_np, build_graph_from_kmers
+    from ploidyfrost_tpu_torch.kmer.pack import string_kmers_np
+
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+    def kmers_of(seqs, k):
+        return np.unique(np.concatenate([_canon_np(string_kmers_np(x, k), k) for x in seqs]))
+
+    def genome(seed, k, snp, G=20000, nhap=3):
+        rng = np.random.default_rng(seed)
+        g1 = rng.integers(0, 4, G)
+        haps = [g1]
+        for _ in range(nhap - 1):
+            g2 = g1.copy()
+            m = rng.random(G) < snp
+            g2[m] = (g2[m] + rng.integers(1, 4, m.sum())) % 4
+            haps.append(g2)
+        return kmers_of([bases[h].tobytes().decode() for h in haps], k)
+
+    graphs = []
+    for seed in range(4):
+        k = 11 + seed
+        graphs.append((f"genome{seed}", build_graph_from_kmers(genome(seed, k, 0.01 + 0.01 * seed), k)))
+    for seed in range(4):
+        rng = np.random.default_rng(seed)
+        k = int(rng.integers(5, 8))
+        km = np.unique(rng.integers(0, 4**k, int(4**k * 0.3)).astype(np.uint64))
+        graphs.append((f"tangle{seed}", build_graph_from_kmers(np.unique(_canon_np(km, k)), k)))
+    rng = np.random.default_rng(7)
+    g1 = rng.integers(0, 4, 220)
+    g2 = g1.copy()
+    g2[110] = (g2[110] + 1) % 4
+    graphs.append(("circular", build_graph_from_kmers(
+        kmers_of([bases[h].tobytes().decode() * 2 for h in (g1, g2)], 25), 25)))
+    return graphs
+
+
+def _search_same(seeds: np.ndarray, succ: np.ndarray, caps, where: str):
+    """The search kernel against its plain version on the card, on the
+    same inputs: all five outputs equal in dtype, shape and every value.
+    Returns the outcome counts and the largest |difference| (0)."""
+    import collections
+
+    import torch
+
+    from ploidyfrost_tpu_torch.bubble import batched
+
+    seeds_t = torch.from_numpy(np.asarray(seeds, dtype=np.int32)).cuda()
+    succ_t = torch.from_numpy(np.ascontiguousarray(succ, dtype=np.int32)).cuda()
+    got = batched.search_batched(seeds_t, succ_t, *caps)
+    want = batched.search_batched_plain(seeds_t, succ_t, *caps)
+    torch.cuda.synchronize()
+    worst = 0
+    for name, a, b in zip(SEARCH_OUTPUTS, got, want):
+        if a.numel() and a.shape == b.shape:
+            worst = max(worst, int((a.long() - b.long()).abs().max()))
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            bad = int((a != b).reshape(len(seeds), -1).any(1).sum()) if a.shape == b.shape else -1
+            raise AssertionError(f"search kernel {name} differs from plain at {where}: "
+                                 f"{a.dtype} {tuple(a.shape)} vs {b.dtype} {tuple(b.shape)}, "
+                                 f"{bad} seeds differ")
+    return collections.Counter(got[0].cpu().tolist()), worst
+
+
+def check_search() -> tuple[int, int]:
+    """The search kernel against its plain version on the card over the
+    graph classes at every cap set of SEARCH_CAPS, and on an empty seed
+    list; returns (cases, largest |difference|)."""
+    import collections
+
+    from ploidyfrost_tpu_torch.bubble import batched
+
+    outcomes = collections.Counter()
+    cases = worst = 0
+    for name, g in _search_graphs():
+        seeds = batched.canonical_seeds(g)
+        for caps in SEARCH_CAPS:
+            stats, err = _search_same(seeds, g._succ, caps, f"{name} caps {caps}")
+            outcomes += stats
+            worst = max(worst, err)
+            cases += 1
+    _search_same(np.zeros(0, np.int32), g._succ, SEARCH_CAPS[0], "an empty seed list")
+    missing = {batched.STAT_NONE, batched.STAT_STALL_CYCLE, batched.STAT_CYCLE_EXIT,
+               batched.STAT_ABORT, batched.STAT_BUBBLE, batched.STAT_OVERFLOW} - set(outcomes)
+    if missing:
+        raise AssertionError(f"the search cases never reached outcomes {sorted(missing)}")
+    log(f"phase 2: search kernel bit-exact against its plain version on {cases + 1} cases "
+        f"(9 graphs x {len(SEARCH_CAPS)} cap sets, and an empty seed list); outcomes "
+        f"{dict(sorted(outcomes.items()))}")
+    return cases + 1, worst
+
+
+def check_search_real(gfa: str, name: str) -> tuple[int, int]:
+    """The search kernel against its plain version on a real graph's
+    seeds, at the default caps and at small ones; returns (cases,
+    largest |difference|)."""
+    from ploidyfrost_tpu_torch.bubble import batched
+    from ploidyfrost_tpu_torch.graph.cdbg import CDBGraph
+
+    g = CDBGraph.from_gfa(gfa)
+    seeds = batched.canonical_seeds(g)
+    caps = [SEARCH_CAPS[0], (8, 8, 16)]
+    res = [_search_same(seeds, g._succ, c, f"{name} caps {c}") for c in caps]
+    log(f"search kernel bit-exact against its plain version on {name}'s {len(seeds)} seeds "
+        f"({len(g)} unitigs) at caps {caps}: outcomes "
+        f"{[dict(sorted(x.items())) for x, _ in res]}")
+    return len(caps), max(err for _, err in res)
+
+
+def time_search(gfa: str, reps: int = 50) -> dict:
+    """The search kernel at a real graph's seeds (bench5m's), per launch
+    with CUDA events and L2 scrubbed: the bare launch and the main-path
+    call (search_batched, with its argument checks); the plain version
+    once; search_seeds end to end (its copies in and out included, no
+    replay); the bound from this run's bytes and DFS steps."""
+    import torch
+
+    from ploidyfrost_tpu_torch.bubble import batched
+    from ploidyfrost_tpu_torch.graph.cdbg import CDBGraph
+    from ploidyfrost_tpu_torch.kmer.extract_bench import (
+        ALU_OPS_PER_S, HBM_BYTES_PER_S, event_times, scrub_buffer, spread)
+
+    g = CDBGraph.from_gfa(gfa)
+    seeds = batched.canonical_seeds(g)
+    seeds_t = torch.from_numpy(seeds.astype(np.int32)).cuda()
+    succ_t = torch.from_numpy(np.ascontiguousarray(g._succ, dtype=np.int32)).cuda()
+    caps = (batched.MAX_SEEN, batched.MAX_STACK, batched.MAX_STEPS)
+    outs = batched.search_batched(seeds_t, succ_t, *caps)
+    scrub = scrub_buffer()
+    before = batched.SEARCH_LAUNCHES
+    runs = {"ms": [], "main_ms": []}
+    for name, f in (("ms", lambda: batched._launch(seeds_t, succ_t, *caps, outs)),
+                    ("main_ms", lambda: batched.search_batched(seeds_t, succ_t, *caps))) * 2:
+        runs[name] += event_times(f, reps // 2, scrub)
+    batched.SEARCH_LAUNCHES = before  # timing launches are not the main path's
+    counts = {}
+    plain_ms = spread(event_times(
+        lambda: batched.search_batched_plain(seeds_t, succ_t, *caps, counts=counts), 1, scrub))[0]
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batched.search_seeds(g, seeds, "cuda")
+        walls.append(time.perf_counter() - t0)
+    batched.SEARCH_LAUNCHES = before
+    S, n, ms = len(seeds), len(g), caps[0]
+    nbytes = n * 32 + S * 4 + S * (1 + 4 + 1 + 4 * ms + 4)
+    # a floor on the integer work: each DFS step probes its (up to) 4
+    # successors against the ms slots, 8 operations a slot (u's idx
+    # compare, four predecessor compares, the st, sm and cyc selects)
+    ops = counts["steps"] * 4 * ms * 8
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ALU_OPS_PER_S * 1e3
+    res = {"seeds": S, "unitigs": n, "steps": counts["steps"], "bytes": nbytes, "ops": ops,
+           "plain_ms": plain_ms, "search_seeds_s": spread(walls),
+           "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    for name, times in runs.items():
+        res[name] = spread(times)
+    return res
+
+
 def profile_batch(B=16384, L=160, k=25) -> list[str]:
     """Names of the CUDA kernels that one counter batch (already on the
     card) runs, from a torch.profiler trace."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     from ploidyfrost_tpu_torch.kmer.count import KmerCounter
     from ploidyfrost_tpu_torch.kmer.extract_bench import random_codes
+    from ploidyfrost_tpu_torch.util.profiling import profiled
 
     counter = KmerCounter(k, device="cuda")
     codes = random_codes(B, L, seed=2)
     counter.add_reads(codes)  # warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         counter.add_reads(codes)
         torch.cuda.synchronize()
     return [e.name for e in prof.events()
@@ -561,6 +748,7 @@ def multi3x5m(device: str, work: str, genome_bp: int = 5_000_000, profile: bool 
 
     import torch
 
+    from ploidyfrost_tpu_torch.bubble import batched
     from ploidyfrost_tpu_torch.cli import Options
     from ploidyfrost_tpu_torch.kmer import extract
     from ploidyfrost_tpu_torch.pipeline import run_multisample_pipeline_cli
@@ -575,6 +763,7 @@ def multi3x5m(device: str, work: str, genome_bp: int = 5_000_000, profile: bool 
     opt.inputs = reads
     torch.cuda.reset_peak_memory_stats()
     extract.LAUNCHES = 0
+    batched.SEARCH_LAUNCHES = 0
     prof = cProfile.Profile() if profile else None
     t0 = time.time()
     rc = prof.runcall(run_multisample_pipeline_cli, opt, device) if prof else \
@@ -583,11 +772,12 @@ def multi3x5m(device: str, work: str, genome_bp: int = 5_000_000, profile: bool 
     if prof:
         pstats.Stats(prof).sort_stats("cumulative").print_stats(40)
     launches = extract.LAUNCHES
+    search_launches = batched.SEARCH_LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     if rc != 0:
         raise RuntimeError(f"pipeline-multi returned {rc}")
-    if launches == 0:
-        raise AssertionError("multi3x5m never launched K1")
+    if launches == 0 or search_launches == 0:
+        raise AssertionError(f"multi3x5m launches: K1 {launches}, search {search_launches}")
     ploidy = _model_ploidy("multi")
     if ploidy != 2:
         raise AssertionError(f"multi3x5m ploidy {ploidy} != 2")
@@ -600,8 +790,9 @@ def multi3x5m(device: str, work: str, genome_bp: int = 5_000_000, profile: bool 
     log(f"multi3x5m: pipeline-multi wall {wall:.3f} s, cutoffs {opt.coverage_vec}, "
         f"ploidy {ploidy}, unitigs {info['nbUnitig']}, k-mers {info['nbKmer']}, "
         f"colors {info['NbColors']}, bubbles {bubbles}, K1 launches {launches}, "
-        f"peak device memory {peak / 2**30:.3f} GiB")
-    return {"launches": launches, "wall": wall}
+        f"search launches {search_launches}, peak device memory {peak / 2**30:.3f} GiB")
+    return {"launches": launches, "search_launches": search_launches, "wall": wall,
+            "gfa": os.path.join(work, "multi.gfa")}
 
 
 def torch_programs(device: str, work: str, reads: str, table: str, lower: int):
@@ -942,15 +1133,13 @@ def nw_wavefront(device: str, work: str, bench_pairs: list):
         f"steps, numpy {times['numpy'][0]:.3f} s (one run)")
 
     # one chunk of the commonest tier under the profiler: launches a step
-    from torch.profiler import profile
-
-    from ploidyfrost_tpu_torch.util.profiling import device_busy
+    from ploidyfrost_tpu_torch.util.profiling import device_busy, profiled
 
     tier = hist.most_common(1)[0][0]
     lanes = [p for p in real if batch_nw._tier_of(len(p[0]), len(p[1])) == tier][
         : batch_nw._chunk_of(tier)]
     _sync(device)
-    with profile(activities=_activities(device)) as prof:
+    with profiled(_activities(device)) as prof:
         t0 = time.time()
         batch_nw.wavefront_packed([a for a, _ in lanes], [b for _, b in lanes], tier, 2, -1, -3,
                                   device)
@@ -1005,11 +1194,11 @@ def _traced_run(device: str, src_prefix: str, out: str, cutoffs: list[str]) -> d
 def tracing(device: str, work: str, golden_dir: str, bench_dir: str):
     """Phase 10: the phase traces of the single_diploid `run`, and the
     card's busy share of bench5m's superbubble search."""
-    from torch.profiler import profile
+    from torch.autograd import DeviceType
 
     from ploidyfrost_tpu_torch.bubble.batched import find_superbubbles_device
     from ploidyfrost_tpu_torch.graph.cdbg import CDBGraph
-    from ploidyfrost_tpu_torch.util.profiling import device_busy
+    from ploidyfrost_tpu_torch.util.profiling import device_busy, profiled
 
     os.makedirs(work, exist_ok=True)
     os.chdir(work)
@@ -1029,17 +1218,23 @@ def tracing(device: str, work: str, golden_dir: str, bench_dir: str):
         _, bubbles = find_superbubbles_device(g, 8, device=device)
         _sync(device)
         plain.append(time.time() - t0)
-    with profile(activities=_activities(device)) as prof:
+    with profiled(_activities(device)) as prof:
         t0 = time.time()
         find_superbubbles_device(g, 8, device=device)
         _sync(device)
         wall = time.time() - t0
     busy = device_busy(prof, wall)
-    if device == "cuda" and busy["kernels"] < 1:
-        raise AssertionError("the profiler saw no CUDA kernel in the superbubble search")
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    search_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and "superbubble_search" in e.name)
+    n_search = sum("superbubble_search" in x for x in names)
+    if device == "cuda" and n_search < 1:
+        raise AssertionError(f"the profiler saw no search kernel in findSuperBubble: {names[:20]}")
     log(f"phase 10: bench5m findSuperBubble ({len(g)} unitigs, {len(bubbles)} bubbles): "
         f"{plain[0]:.3f} s and {plain[1]:.3f} s without the profiler; under it {wall:.3f} s, "
-        f"{busy['kernels']} kernels, kernel time {busy['kernel_s']:.4f} s, copies "
+        f"{busy['kernels']} kernels ({n_search} of them the search kernel, "
+        f"{search_us / 1e3:.3f} ms), kernel time {busy['kernel_s']:.4f} s, copies "
         f"{busy['copy_s']:.4f} s: the card busy {100 * busy['busy_share']:.1f}% of the profiled "
         f"phase (idle {100 * (1 - busy['busy_share']):.1f}%), "
         f"{100 * (busy['kernel_s'] + busy['copy_s']) / min(plain):.1f}% of the faster unprofiled "
@@ -1057,6 +1252,7 @@ def multi_card(work: str, bench: str, reads: str) -> dict:
     import torch
     import torch.distributed as dist
 
+    from ploidyfrost_tpu_torch.bubble import batched
     from ploidyfrost_tpu_torch.bubble.batched import (
         canonical_seeds, find_superbubbles_device, search_seeds)
     from ploidyfrost_tpu_torch.graph.cdbg import CDBGraph
@@ -1140,20 +1336,27 @@ def multi_card(work: str, bench: str, reads: str) -> dict:
         seeds = canonical_seeds(g)
         search_s = {}
         outs = {}
+        search_launches = {}
         for side in ("single", "sharded"):
             torch.cuda.synchronize()
+            batched.SEARCH_LAUNCHES = 0
             t0 = time.time()
             outs[side] = search_seeds(g, seeds, "cuda", group if side == "sharded" else None)
             search_s[side] = time.time() - t0
+            search_launches[side] = batched.SEARCH_LAUNCHES
         if not all(np.array_equal(x, y) for x, y in zip(outs["single"], outs["sharded"])):
             raise AssertionError("the sharded search differs from search_seeds")
+        if search_launches["sharded"] < 1:
+            raise AssertionError("the search through the group never launched the search kernel")
+        res["search_launches"] = search_launches["sharded"]
         s1, b1 = find_superbubbles_device(g, 8, device="cuda")
         s2, b2 = find_superbubbles_device(g, 8, device="cuda", group=group)
         if not (np.array_equal(s1.flags, s2.flags) and len(b1) == len(b2)):
             raise AssertionError("the sharded superbubble search found other bubbles")
         log(f"phase 11a: superbubble search on bench5m ({len(seeds)} seeds, {len(b1)} bubbles) "
             f"through the group equal to search_seeds; search seconds single "
-            f"{search_s['single']:.3f}, sharded {search_s['sharded']:.3f}")
+            f"{search_s['single']:.3f}, sharded {search_s['sharded']:.3f}; search kernel "
+            f"launches {search_launches['single']} and {search_launches['sharded']}")
     finally:
         dist.destroy_process_group()
 
@@ -1181,7 +1384,8 @@ def multi_card(work: str, bench: str, reads: str) -> dict:
             if f1.read() != f2.read():
                 raise AssertionError(f"pipeline --devices={n}: {name} differs from one card's")
     ranks = [line for line in proc.stdout.splitlines() if line.startswith("rank ")]
-    if len(ranks) != n or any("K1 launches 0," in line for line in ranks):
+    if len(ranks) != n or any("K1 launches 0," in line or "search launches 0," in line
+                              for line in ranks):
         raise AssertionError(f"rank lines {ranks}")
     log(f"phase 11b: `pipeline --devices={n}` on bench5m: {len(mine)} files byte-identical to "
         f"one card's, wall {wall:.3f} s (process start and {n} ranks' start included)")
@@ -1203,6 +1407,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from ploidyfrost_tpu_torch.bubble import batched
     from ploidyfrost_tpu_torch.kmer import extract
 
     if "jax" in sys.modules or "ploidyfrost_tpu" in sys.modules:
@@ -1222,12 +1427,16 @@ def main() -> int:
     err, n_cases = check_extract()
     log(f"phase 2: K1 bit-exact against its plain version on {n_cases} cases, "
         f"fused count equal to the plain count")
+    search_cases, search_err = check_search()
 
     extract.LAUNCHES = 0
+    batched.SEARCH_LAUNCHES = 0
     golden("cuda", os.path.join(WORK, "golden"))
-    if extract.LAUNCHES == 0:
-        raise AssertionError("golden pipeline never launched K1")
-    log(f"phase 3: golden passed, K1 launches {extract.LAUNCHES}")
+    if extract.LAUNCHES == 0 or batched.SEARCH_LAUNCHES == 0:
+        raise AssertionError(f"golden pipeline launches: K1 {extract.LAUNCHES}, "
+                             f"search {batched.SEARCH_LAUNCHES}")
+    log(f"phase 3: golden passed, K1 launches {extract.LAUNCHES}, "
+        f"search launches {batched.SEARCH_LAUNCHES}")
 
     libs = native_libraries()
     log("native host libraries: " + ", ".join(
@@ -1243,20 +1452,36 @@ def main() -> int:
     log(f"bench5m reads generated in {time.time() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
     extract.LAUNCHES = 0
+    batched.SEARCH_LAUNCHES = 0
     with record_nw_pairs() as bench_nw:
         opt, ploidy, wall = run_pipeline("bench5m_reads.fa", "bench5m", "cuda")
     launches = extract.LAUNCHES
+    search_launches = batched.SEARCH_LAUNCHES
     peak = torch.cuda.max_memory_allocated()
-    if launches == 0:
-        raise AssertionError("bench5m pipeline never launched K1")
+    if launches == 0 or search_launches == 0:
+        raise AssertionError(f"bench5m pipeline launches: K1 {launches}, search {search_launches}")
     if ploidy != 2:
         raise AssertionError(f"bench5m ploidy {ploidy} != 2")
     for stage, sec in opt.stage_seconds.items():
         log(f"bench5m stage {stage}: {sec:.3f} s")
     log(f"bench5m: pipeline wall {wall:.3f} s, cutoffs ({opt.coverage_lower}, "
         f"{opt.coverage_upper}), ploidy {ploidy}, K1 launches {launches}, "
-        f"peak device memory {peak / 2**30:.3f} GiB, "
+        f"search launches {search_launches}, peak device memory {peak / 2**30:.3f} GiB, "
         f"{sum(map(len, bench_nw.calls))} pairs handed to needleman_wunsch_batch")
+    bench_gfa = os.path.join(bench, "bench5m.gfa")
+    cases, err = check_search_real(bench_gfa, "bench5m")
+    search_cases, search_err = search_cases + cases, max(search_err, err)
+    ts = time_search(bench_gfa)
+    search_share = ts["bound_ms"] / ts["ms"][0]
+    log(f"search kernel at bench5m's {ts['seeds']} seeds ({ts['unitigs']} unitigs, "
+        f"{ts['steps']} DFS steps in all), per launch (median [min, max]): kernel "
+        f"{ts['ms'][0]:.4f} ms [{ts['ms'][1]:.4f}, {ts['ms'][2]:.4f}], main-path call "
+        f"(search_batched with its checks) {ts['main_ms'][0]:.4f} ms [{ts['main_ms'][1]:.4f}, "
+        f"{ts['main_ms'][2]:.4f}], plain {ts['plain_ms']:.2f} ms, bound {ts['bound_ms']:.4f} ms "
+        f"({ts['bound_by']}: {ts['bytes']} bytes, {ts['ops']} operations), "
+        f"{100 * search_share:.1f}% of bound; search_seeds end to end (succ and seeds in, "
+        f"outputs out) {ts['search_seeds_s'][0]:.4f} s [{ts['search_seeds_s'][1]:.4f}, "
+        f"{ts['search_seeds_s'][2]:.4f}]")
 
     t = time_extract(baseline_lib)
     ms = t["ms"][0]
@@ -1280,13 +1505,18 @@ def main() -> int:
     log("phase 4: bench5m passed")
 
     extract.LAUNCHES = 0
+    batched.SEARCH_LAUNCHES = 0
     golden_colored("cuda", os.path.join(WORK, "golden_colored"))
-    if extract.LAUNCHES == 0:
-        raise AssertionError("the colored golden never launched K1")
-    log(f"phase 5: colored golden passed, K1 launches {extract.LAUNCHES}")
+    if extract.LAUNCHES == 0 or batched.SEARCH_LAUNCHES == 0:
+        raise AssertionError(f"the colored golden launches: K1 {extract.LAUNCHES}, "
+                             f"search {batched.SEARCH_LAUNCHES}")
+    log(f"phase 5: colored golden passed, K1 launches {extract.LAUNCHES}, "
+        f"search launches {batched.SEARCH_LAUNCHES}")
 
     multi = multi3x5m("cuda", os.path.join(WORK, "multi3x5m"), profile=args.profile_multi)
-    log("phase 6: multi3x5m passed")
+    cases, err = check_search_real(multi["gfa"], "multi3x5m")
+    search_cases, search_err = search_cases + cases, max(search_err, err)
+    log(f"phase 6: multi3x5m passed; search kernel bit-exact on {search_cases} cases in all")
 
     torch_programs("cuda", os.path.join(WORK, "programs"),
                    os.path.join(bench, "bench5m_reads.fa"),
@@ -1334,6 +1564,22 @@ def main() -> int:
         "bound_by": t["bound_by"],
         "library_ms": None,
         "share_of_bound": share,
+    }, {
+        "name": "superbubble_search",
+        "route": "cuda",
+        "source": "ploidyfrost_tpu_torch/csrc/superbubble_search.cu",
+        "replaces": "ploidyfrost_tpu/bubble/batched.py:105",
+        "launches": search_launches,
+        "launches_multi3x5m": multi["search_launches"],
+        "launches_sharded_one_rank": cards["search_launches"],
+        "cases": search_cases,
+        "max_abs_err": float(search_err),
+        "ms": ts["ms"][0],
+        "plain_ms": ts["plain_ms"],
+        "bound_ms": ts["bound_ms"],
+        "bound_by": ts["bound_by"],
+        "library_ms": None,
+        "share_of_bound": search_share,
     }]}
     if smi.returncode != 0 or not smi.stdout.strip():
         raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")

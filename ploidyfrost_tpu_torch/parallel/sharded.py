@@ -301,25 +301,22 @@ def build_sharded_ll_step(group: Group):
 
 
 def build_sharded_search_step(group: Group):
-    """Superbubble search over the group: (seeds [S] int64, succ_node
-    [n, 2, 4] int64, both on this rank's device) -> the five outputs of
-    bubble/batched._search_batched for all S seeds, on every rank.
+    """Superbubble search over the group: (seeds [S] int32, succ_node
+    [n, 2, 4] int32, both on this rank's device) -> the five outputs of
+    bubble/batched.search_batched for all S seeds, on every rank.
 
     Seeds are independent (the search reads only the adjacency,
     src/CDBG.cpp:2643-2823), so they split into ceil(S / world) a rank,
-    the last slice padded with the last seed; the host replay then runs
-    unchanged on every rank."""
-    from ..bubble.batched import MAX_CHUNK, _search_batched
+    the last slice padded with the last seed; every rank searches its
+    slice with search_batched (one kernel launch on a card), and the host
+    replay then runs unchanged on every rank."""
+    from ..bubble.batched import search_batched
 
     def step(seeds, succ_node):
         n = seeds.numel()
         per = -(-n // group.world)
         pad = seeds[-1:].expand(per * group.world - n)
         mine = torch.cat([seeds, pad])[group.rank * per : (group.rank + 1) * per]
-        outs = [
-            _search_batched(mine[off : off + MAX_CHUNK], succ_node)
-            for off in range(0, per, MAX_CHUNK)
-        ]
-        return [_all_gather_cat(group, torch.cat(x))[:n] for x in zip(*outs)]
+        return [_all_gather_cat(group, x)[:n] for x in search_batched(mine, succ_node)]
 
     return step

@@ -414,16 +414,19 @@ def count_sample(files, k: int, dev, trim=None, group=None):
 
 
 def _log_ranks(group, times: dict, log: list) -> None:
-    """On a group: rank 0 logs every rank's K1 launches, stage seconds
-    and counter flushes (`log`: ShardedKmerCounter.flush_log entries,
-    key bytes sent and route + merge seconds)."""
+    """On a group: rank 0 logs every rank's K1 and search-kernel
+    launches, stage seconds and counter flushes (`log`:
+    ShardedKmerCounter.flush_log entries, key bytes sent and route +
+    merge seconds)."""
     if group is None:
         return
     import torch.distributed as dist
 
+    from .bubble import batched
     from .kmer import extract
 
     mine = {"group init s": round(group.init_s, 4), "K1 launches": extract.LAUNCHES,
+            "search launches": batched.SEARCH_LAUNCHES,
             "flushes": len(log),
             "all_to_all bytes": sum(b for b, _ in log),
             "route+merge s": round(sum(t for _, t in log), 4),

@@ -1,7 +1,8 @@
 """The port's sharded stages on the CPU with gloo (parallel/sharded.py).
 
-Groups of 2 and 4 ranks, one process each, run the sharded counter, the
-sharded EM and the sharded superbubble search on seeded inputs; rank 0
+Groups of 2, 3 and 4 ranks, one process each, run the sharded counter,
+the sharded EM and the sharded superbubble search on seeded inputs (at 3
+ranks the seeds, rows and frequencies split unevenly); rank 0
 saves what they computed and the tests hold it against the
 single-device functions of the port and against the JAX package's mesh
 versions on the 8 virtual CPU devices of tests/conftest.py:
@@ -120,7 +121,7 @@ def work(tmp_path_factory):
     return d
 
 
-@pytest.fixture(scope="module", params=[2, 4], ids=lambda w: f"world{w}")
+@pytest.fixture(scope="module", params=[2, 3, 4], ids=lambda w: f"world{w}")
 def ranks(request, work):
     """What a gloo group of `world` CPU ranks computed in _rank_job."""
     from ploidyfrost_tpu_torch.parallel.mesh import RankPlan, run_ranks

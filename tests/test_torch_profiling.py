@@ -77,6 +77,26 @@ def test_device_busy_of_a_cpu_profile():
     assert profiling.device_busy(prof, 0.0)["busy_share"] == 0.0
 
 
+@pytest.mark.parametrize("with_cuda", [False, True], ids=["cpu", "cuda"])
+def test_profiled_settles_only_a_session_that_traces_the_card(with_cuda, monkeypatch):
+    """`profiled` waits PROFILE_SETTLE_S after the start of a session that
+    traces the card (the profiler loses the device events of its first
+    milliseconds), and not at all for a CPU-only session."""
+    from torch.profiler import ProfilerActivity
+
+    sleeps, syncs = [], []
+    monkeypatch.setattr(profiling.time, "sleep", sleeps.append)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: syncs.append(1))
+    activities = [ProfilerActivity.CPU]
+    if with_cuda:
+        activities.append(ProfilerActivity.CUDA)
+    with profiling.profiled(activities) as prof:
+        _work()
+    assert sleeps == ([profiling.PROFILE_SETTLE_S] if with_cuda else [])
+    assert len(syncs) == int(with_cuda)
+    assert any(e.name.startswith("aten::") for e in prof.events())
+
+
 def test_profile_analysis_returns_every_stage(capsys):
     times = profiling.profile_analysis(200_000, device="cpu")
     assert set(times) == {

@@ -8,9 +8,16 @@ search_seeds` exactly, and the port's graph + search + replay must give
 the JAX package's bubble list and state arrays. The search loop runs
 every seed in one batch, freezing finished lanes; these graphs mix every
 outcome class, so a lane corrupted after it finished would show.
+
+On the CPU the dispatcher `search_batched` takes the plain version (the
+CUDA kernel csrc/superbubble_search.cu is held against it on the card by
+chip_smoke.py): here it must equal the JAX `_build_search(ms, mstk,
+max_steps)` program at several caps, overflow lanes included, leave the
+launch counter at 0, and refuse what the kernel does not take.
 """
 
 import collections
+import functools
 
 import numpy as np
 import pytest
@@ -123,10 +130,187 @@ def test_small_step_budget_overflows_unfinished_lanes():
     g = port_build(_genome_kmers(2, G=4000, k=11, snp=0.04), 11)
     seeds = torch.from_numpy(_seeds(g).astype(np.int64))
     succ = torch.from_numpy(np.asarray(g._succ, dtype=np.int64))
-    full = T._search_batched(seeds, succ)
-    short = T._search_batched(seeds, succ, max_steps=2)
+    full = T.search_batched_plain(seeds, succ)
+    short = T.search_batched_plain(seeds, succ, max_steps=2)
     finished = (short[0] != T.STAT_OVERFLOW).numpy()
     assert (~finished).any()
     # lanes that finished within 2 steps agree with the full search
     for a, b in zip(short, full):
         np.testing.assert_array_equal(a.numpy()[finished], b.numpy()[finished])
+
+
+def _search_inputs(g):
+    import torch
+
+    seeds = torch.from_numpy(_seeds(g))
+    succ = torch.from_numpy(np.ascontiguousarray(g._succ, dtype=np.int32))
+    return seeds, succ
+
+
+@functools.lru_cache(maxsize=1)
+def _small_genome_graph():
+    return port_build(_genome_kmers(1, G=4000, k=11, snp=0.03), 11)
+
+
+# (ms, mstk, max_steps): the defaults, small seen and stack caps, lanes
+# cut at one and two steps, and caps between
+CAPS = [(32, 48, 192), (8, 8, 16), (32, 48, 1), (32, 48, 2), (16, 12, 64)]
+
+
+@pytest.mark.parametrize("caps", CAPS, ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("graph", ["genome", "tangle"])
+def test_search_batched_equals_jax_at_caps(graph, caps):
+    """All five outputs equal the JAX program built for the same caps,
+    lanes that overflow or run out of steps included."""
+    import jax.numpy as jnp
+
+    if graph == "genome":
+        km, k = _genome_kmers(3, G=4000, k=11, snp=0.03), 11
+    else:
+        km, k = _tangle_kmers(5, frac=0.25)
+    gj = jax_build(km, k)
+    gt = port_build(km, k)
+    seeds, succ = _search_inputs(gt)
+    got = T.search_batched(seeds, succ, *caps)
+    want = J._build_search(*caps)(jnp.asarray(_seeds(gj)), jnp.asarray(gj._succ, dtype=jnp.int32))
+    for name, a, b in zip(("status", "psec", "nseen", "seen", "cyc"), got, want):
+        a = a.numpy()
+        b = np.asarray(b)
+        if name == "cyc":
+            a = a.view(np.uint32)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    if caps[0] < 32 or caps[2] < 3:
+        assert (got[0] == T.STAT_OVERFLOW).any()
+
+
+def test_dispatcher_takes_plain_version_on_cpu():
+    import torch
+
+    g = _small_genome_graph()
+    seeds, succ = _search_inputs(g)
+    T.SEARCH_LAUNCHES = 0
+    got = T.search_batched(seeds, succ)
+    assert T.SEARCH_LAUNCHES == 0
+    want = T.search_batched_plain(seeds, succ)
+    dtypes = (torch.uint8, torch.int32, torch.uint8, torch.int32, torch.int32)
+    for a, b, dtype in zip(got, want, dtypes):
+        assert a.dtype == b.dtype == dtype
+        assert a.device.type == "cpu"
+        assert (a == b).all()
+    assert got[3].shape == (len(seeds), T.MAX_SEEN)
+
+
+def test_dispatcher_on_an_empty_seed_list():
+    import torch
+
+    g = _small_genome_graph()
+    _, succ = _search_inputs(g)
+    out = T.search_batched(torch.zeros(0, dtype=torch.int32), succ)
+    assert [tuple(x.shape) for x in out] == [(0,), (0,), (0,), (0, T.MAX_SEEN), (0,)]
+
+
+def _bad_args(case):
+    """(seed, succ, kwargs) with one thing the kernel does not take."""
+    import torch
+
+    g = _small_genome_graph()
+    seeds, succ = _search_inputs(g)
+    n2 = 2 * succ.shape[0]
+    return {
+        "seed_int64": (seeds.long(), succ, {}),
+        "seed_2d": (seeds[None, :], succ, {}),
+        "succ_int64": (seeds, succ.long(), {}),
+        "succ_shape": (seeds, succ.reshape(-1, 8), {}),
+        "devices": (seeds.to("meta"), succ, {}),
+        "seed_strided": (seeds[::2], succ, {}),
+        "succ_strided": (seeds, succ.transpose(1, 2).contiguous().transpose(1, 2), {}),
+        "ms_33": (seeds, succ, {"ms": 33}),
+        "ms_0": (seeds, succ, {"ms": 0}),
+        "mstk_0": (seeds, succ, {"mstk": 0}),
+        "mstk_cap": (seeds, succ, {"mstk": T.MAX_STACK_CAP + 1}),
+        "steps_negative": (seeds, succ, {"max_steps": -1}),
+        "seed_past_table": (torch.cat([seeds, torch.tensor([n2], dtype=torch.int32)]), succ, {}),
+        "seed_negative": (torch.cat([seeds, torch.tensor([-2], dtype=torch.int32)]), succ, {}),
+    }[case]
+
+
+BAD = {
+    "seed_int64": TypeError, "seed_2d": TypeError, "succ_int64": TypeError,
+    "succ_shape": TypeError, "devices": ValueError, "seed_strided": ValueError,
+    "succ_strided": ValueError, "ms_33": ValueError, "ms_0": ValueError,
+    "mstk_0": ValueError, "mstk_cap": ValueError, "steps_negative": ValueError,
+    "seed_past_table": ValueError, "seed_negative": ValueError,
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD))
+def test_dispatcher_argument_checks_raise(case):
+    seed, succ, kw = _bad_args(case)
+    T.SEARCH_LAUNCHES = 0
+    with pytest.raises(BAD[case]):
+        T.search_batched(seed, succ, **kw)
+    assert T.SEARCH_LAUNCHES == 0
+
+
+def test_search_seeds_refuses_handles_beyond_int32():
+    g = _small_genome_graph()
+    with pytest.raises(ValueError, match="int32"):
+        T.search_seeds(g, np.array([1, (1 << 31) + 3], dtype=np.int64), device="cpu")
+
+
+def test_search_seeds_refuses_cuda_without_a_card():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the refusal cannot be shown")
+    g = _small_genome_graph()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        T.search_seeds(g, _seeds(g), device="cuda")
+
+
+def test_search_seeds_in_small_chunks_equals_one_chunk(monkeypatch):
+    """The plain version runs MAX_CHUNK seeds a call; cutting the seeds
+    into many chunks (the last one short) changes no output."""
+    g = _small_genome_graph()
+    seeds = _seeds(g)
+    whole = T.search_seeds(g, seeds, device="cpu")
+    monkeypatch.setattr(T, "MAX_CHUNK", 37)
+    assert len(seeds) > 3 * 37 and len(seeds) % 37
+    chunked = T.search_seeds(g, seeds, device="cpu")
+    for a, b in zip(chunked, whole):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_parity_colored():
+    """The colored registration gates at replay time (the colored case of
+    tests/test_batched.py) on the port: its search + colored replay give
+    the JAX package's state arrays and bubble list, and its own host
+    search's."""
+    from ploidyfrost_tpu.graph.colors import color_graph as jax_color_graph
+    from ploidyfrost_tpu_torch.bubble.superbubble import find_superbubbles
+    from ploidyfrost_tpu_torch.graph.colors import color_graph
+
+    rng = np.random.default_rng(3)
+    G, k = 8000, 15
+    g1 = rng.integers(0, 4, G)
+    g2 = g1.copy()
+    m = rng.random(G) < 0.015
+    g2[m] = (g2[m] + rng.integers(1, 4, m.sum())) % 4
+    seqs = [BASES[h].tobytes().decode() for h in (g1, g2)]
+    per_hap = [np.unique(_canon_np(string_kmers_np(x, k), k)) for x in seqs]
+    km = np.unique(np.concatenate(per_hap))
+    gj, gt = jax_build(km, k), port_build(km, k)
+    cj, ct = jax_color_graph(gj, per_hap), color_graph(gt, per_hap)
+    np.testing.assert_array_equal(ct.bits, cj.bits)
+    sj, bj = J.find_superbubbles_device(gj, colors=cj)
+    st, bt = T.find_superbubbles_device(gt, colors=ct, device="cpu")
+    sh, bh = find_superbubbles(gt, colors=ct)
+    key = lambda b: (b.bubble_id, b.entrance, b.strand, b.exit, b.strict, b.complex)  # noqa: E731
+    for s, b in ((sj, bj), (sh, bh)):
+        np.testing.assert_array_equal(st.flags, s.flags)
+        np.testing.assert_array_equal(st.plus, s.plus)
+        np.testing.assert_array_equal(st.minus, s.minus)
+        assert [key(x) for x in bt] == [key(x) for x in b]
+    assert bt
