@@ -1,10 +1,13 @@
 """Smoke test of ploidyfrost_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--baseline-cu PATH] [--profile-multi]
+    python3 chip_smoke.py [--baseline-cu PATH] [--baseline-search-cu PATH] [--profile-multi]
 
 Phases (any failure exits non-zero):
   1. build every CUDA kernel of the package from csrc/ (nvcc, sm_90a,
-     one nvcc each, all at once);
+     one nvcc each, all at once); print, for each tile width T the
+     search kernel is built for, its registers, local memory, shared
+     memory a block and resident blocks a multiprocessor at the default
+     stack cap and at MAX_STACK_CAP;
   2. hold kernel K1 (canonical k-mer extraction) bit-exact against its
      plain torch version on the card, over random codes with Ns and
      other invalid codes: k in {1, 2, 5, 16, 17, 25, 31}, L from k to
@@ -13,12 +16,16 @@ Phases (any failure exits non-zero):
      tiles, output offsets {0, 1, 7}; the fused valid count, accumulated
      over two calls, equal to the plain count; nothing written outside
      the slice; then the superbubble search kernel bit-exact against its
-     plain version on the card, all five outputs, on the graph classes
-     of tests/test_torch_search.py (genome-like, dense tangles, the
-     circular cycle-exit graph) at the caps (ms, mstk, max_steps) of
-     SEARCH_CAPS (the default and small ones that force overflow and
-     unfinished lanes), every outcome class reached, and on an empty
-     seed list; the same check on bench5m's and multi3x5m's real seeds
+     plain version on the card at every tile width T, all five outputs,
+     on the graph classes of tests/test_torch_search.py (genome-like,
+     dense tangles, the circular cycle-exit graph) at the caps (ms,
+     mstk, max_steps) of SEARCH_CAPS (the default, small ones that force
+     overflow and unfinished lanes, ms = 1, mstk = MAX_STACK_CAP), every
+     outcome class reached, on a seed count that is no multiple of any
+     tile shape's seeds a block, and on an empty seed list; a seed
+     outside the table raises ValueError on the card, and the kernel
+     writes nothing past the ends of output buffers laid in sentinel-
+     filled ones; the same check on bench5m's and multi3x5m's real seeds
      runs in phases 4 and 6, once their graphs exist;
   3. golden: regenerate the single_diploid reads (100 kb diploid, k=25)
      and run the port's `pipeline` on the card: cutoffs (10, 37), the 12
@@ -29,9 +36,15 @@ Phases (any failure exits non-zero):
      the native host libraries that loaded (graph construction must),
      per-stage wall times, K1's launches on that run, peak device
      memory, the search kernel's launches on that run; the search
-     kernel at bench5m's seeds: median and min-max a launch (bare and
-     through search_batched), the plain version's time, search_seeds
-     end to end, the bound; then K1 at the main path's batch shape: the per-launch
+     kernel at bench5m's seeds: median and min-max a launch (bare at the
+     default T and at every T, and through search_batched), with
+     --baseline-search-cu an earlier search source with the C ABI that
+     has no word and no tile arguments (seeds, S, succ, n, ms, mstk,
+     max_steps, five outputs, stream) built and timed in turns
+     (baseline, kernel, kernel, baseline), the plain version's time,
+     search_seeds end to end, the bound, the longest seed's DFS steps,
+     the dependent-load latency on the card and the latency floor;
+     then K1 at the main path's batch shape: the per-launch
      median and min-max of the bare kernel and of the main-path call
      (with the fused count), against its bound and its plain version's
      time, K1 back to back in a CUDA graph, and, with --baseline-cu, an
@@ -49,6 +62,7 @@ Phases (any failure exits non-zero):
      haplotype, seed 7; about 118 M k-mer instances a sample) through
      `pipeline-multi` on the card: ploidy 2, K1 launched, every stage's
      seconds, the wall, cutoffs, unitigs, colors, bubbles, peak memory;
+     the search kernel bit-exact and timed at its seeds as in phase 4;
   7. the two torch programs on the card: `build` of the bench5m reads
      with and without --device-build (byte-identical GFA; the link step
      timed both ways on that k-mer set, in turns), and
@@ -85,7 +99,8 @@ Phases (any failure exits non-zero):
      sites pass is host code while the native NW kernel runs, so
      ploidyEstimation.json holds kernels only in phase 9's run); then
      bench5m's superbubble search under the profiler: its kernels (the
-     search kernel must be among them) and the card's busy share of it;
+     search kernel must be among them, no reduction kernel may be) and
+     the card's busy share of it;
  11. several cards (parallel/): the visible card count; (a) a one-rank
      NCCL group on cuda:0: ShardedKmerCounter over bench5m's reads with
      the table, histogram and instance count of KmerCounter on the same
@@ -103,6 +118,8 @@ Phases (any failure exits non-zero):
 
 Phases 1-10 run on one card (PLOIDYFROST_DEVICES=1 for the CLI calls),
 whatever the machine holds. All five native host libraries must load.
+Every check that reads a profiler trace (phases 4, 9 and 10) runs in a
+fresh process of its own (in_fresh_process).
 Every pipeline path (phases 3-6) and the one-rank group's search must
 launch both kernels.
 
@@ -257,30 +274,94 @@ def make_indel_reads(path: str):
                     f.write(f">r{n}\n{hap[s:s+150]}\n")
 
 
-def build_kernels(baseline_cu: str | None):
-    """Build every csrc/*.cu at once (one nvcc each), and the baseline
-    K1 source if given into WORK; return (seconds, baseline lib)."""
+def build_kernels(baseline_cu: str | None, baseline_search_cu: str | None):
+    """Build every csrc/*.cu at once (one nvcc each), the baseline K1 and
+    search sources if given, and the dependent-load probe, into WORK;
+    return (seconds, baseline K1 lib, baseline search lib, probe lib)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ploidyfrost_tpu_torch.kmer import extract
 
-    def build_baseline():
-        lib = os.path.join(WORK, "libk1_baseline.so")
-        subprocess.run([extract._nvcc(), *extract.NVCC_FLAGS, "-o", lib, baseline_cu],
+    def nvcc(src, name):
+        lib = os.path.join(WORK, name)
+        subprocess.run([extract._nvcc(), *extract.NVCC_FLAGS, "-o", lib, src],
                        check=True, capture_output=True, text=True, timeout=600)
         return lib
 
+    probe_src = os.path.join(WORK, "load_latency.cu")
+    with open(probe_src, "w") as f:
+        f.write(LOAD_LATENCY_CU)
     names = sorted(f[:-3] for f in os.listdir(extract.CSRC) if f.endswith(".cu"))
     t0 = time.time()
-    with ThreadPoolExecutor(max_workers=len(names) + 1) as pool:
-        base = pool.submit(build_baseline) if baseline_cu else None
+    with ThreadPoolExecutor(max_workers=len(names) + 3) as pool:
+        base = pool.submit(nvcc, baseline_cu, "libk1_baseline.so") if baseline_cu else None
+        base_search = (pool.submit(nvcc, baseline_search_cu, "libsearch_baseline.so")
+                       if baseline_search_cu else None)
+        probe = pool.submit(nvcc, probe_src, "libload_latency.so")
         libs = list(pool.map(extract.build, names))
         base_lib = base.result() if base else None
+        base_search_lib = base_search.result() if base_search else None
+        probe_lib = probe.result()
     for name, lib in zip(names, libs):
         log(f"built {name} -> {os.path.relpath(lib, ROOT)}")
     if base_lib:
         log(f"built baseline K1 from {baseline_cu}")
-    return time.time() - t0, base_lib
+    if base_search_lib:
+        log(f"built baseline search kernel from {baseline_search_cu}")
+    return time.time() - t0, base_lib, base_search_lib, probe_lib
+
+
+# One thread follows a chain of dependent 4-byte loads, each into a
+# 32-byte sector of its own: the latency of one dependent global read, as
+# a DFS step of the search kernel waits for it.
+LOAD_LATENCY_CU = r"""
+#include <cuda_runtime.h>
+__global__ void chase(const int* __restrict__ next, int steps, int* __restrict__ out) {
+  int i = 0;
+  for (int s = 0; s < steps; ++s) i = __ldg(next + i);
+  *out = i;
+}
+extern "C" int pf_chase(const int* next, int steps, int* out, void* stream) {
+  chase<<<1, 1, 0, (cudaStream_t)stream>>>(next, steps, out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def load_latency_us(probe_lib: str, sectors: int = 1 << 17, steps: int = 20000) -> dict:
+    """Microseconds a dependent load: the chase kernel over a random cycle
+    through `sectors` 32-byte sectors (4 MB, the size of a real graph's
+    successor table), cold (L2 scrubbed before each run: every load a
+    first touch) and warm (the same chain again, from L2)."""
+    import torch
+
+    from ploidyfrost_tpu_torch.kmer.extract_bench import event_times, scrub_buffer
+
+    rng = np.random.default_rng(3)
+    order = rng.permutation(sectors) * 8  # int index of each sector's first word
+    nxt = np.zeros(sectors * 8, np.int32)
+    nxt[order] = np.roll(order, -1)  # one cycle through every sector; index 0 is on it
+    nxt_t = torch.from_numpy(nxt).cuda()
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    fn = ctypes.CDLL(probe_lib).pf_chase
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        if fn(nxt_t.data_ptr(), steps, out.data_ptr(), stream):
+            raise RuntimeError("chase launch failed")
+
+    cold = min(event_times(run, 5, scrub_buffer()))
+    run()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    run()
+    b.record()
+    b.synchronize()
+    return {"cold_us": cold * 1e3 / steps, "warm_us": a.elapsed_time(b) * 1e3 / steps}
 
 
 def check_extract() -> tuple[int, int]:
@@ -404,10 +485,27 @@ def time_extract(baseline_lib: str | None, B=16384, L=160, k=25, reps=200) -> di
 
 # (ms, mstk, max_steps) of the search kernel's checks: the default caps,
 # then small ones that force seen and stack overflow and lanes that run
-# out of steps
+# out of steps, one seen slot, and the largest stack the kernel takes
 SEARCH_CAPS = [(32, 48, 192), (8, 8, 1), (8, 8, 2), (8, 8, 16), (16, 12, 64), (32, 48, 1),
-               (32, 48, 2)]
+               (32, 48, 2), (1, 8, 16), (1, 48, 192), (32, 1024, 192)]
 SEARCH_OUTPUTS = ("status", "psec", "nseen", "seen", "cyc")
+
+
+def search_attributes():
+    """Phase 1: the compiled search kernel of every tile width at the
+    default stack cap and at MAX_STACK_CAP."""
+    from ploidyfrost_tpu_torch.bubble import batched
+
+    default = batched.kernel_attributes()["tile"]
+    for tile in batched.TILES:
+        for mstk in (batched.MAX_STACK, batched.MAX_STACK_CAP):
+            a = batched.kernel_attributes(tile, mstk)
+            log(f"search kernel T={tile}{' (default)' if tile == default else ''} mstk={mstk}: "
+                f"{a['registers']} registers and {a['local_bytes']} bytes of local memory a "
+                f"thread, {a['shared_bytes']} bytes of shared memory a block of {a['threads']} "
+                f"threads ({a['seeds']} seeds), {a['blocks_per_sm']} blocks resident a "
+                "multiprocessor")
+    return default
 
 
 def _search_graphs():
@@ -451,9 +549,27 @@ def _search_graphs():
     return graphs
 
 
+def _same_outputs(got, want, seeds: int, where: str) -> int:
+    """All five search outputs equal in dtype, shape and every value;
+    returns the largest |difference| (0)."""
+    import torch
+
+    worst = 0
+    for name, a, b in zip(SEARCH_OUTPUTS, got, want):
+        if a.numel() and a.shape == b.shape:
+            worst = max(worst, int((a.long() - b.long()).abs().max()))
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            bad = int((a != b).reshape(seeds, -1).any(1).sum()) if a.shape == b.shape else -1
+            raise AssertionError(f"search kernel {name} differs from plain at {where}: "
+                                 f"{a.dtype} {tuple(a.shape)} vs {b.dtype} {tuple(b.shape)}, "
+                                 f"{bad} seeds differ")
+    return worst
+
+
 def _search_same(seeds: np.ndarray, succ: np.ndarray, caps, where: str):
-    """The search kernel against its plain version on the card, on the
-    same inputs: all five outputs equal in dtype, shape and every value.
+    """The search kernel at every tile width, and the dispatcher at its
+    default, against the plain version on the card, on the same inputs;
+    the largest nseen from the launch's word equal to the plain one.
     Returns the outcome counts and the largest |difference| (0)."""
     import collections
 
@@ -463,53 +579,112 @@ def _search_same(seeds: np.ndarray, succ: np.ndarray, caps, where: str):
 
     seeds_t = torch.from_numpy(np.asarray(seeds, dtype=np.int32)).cuda()
     succ_t = torch.from_numpy(np.ascontiguousarray(succ, dtype=np.int32)).cuda()
-    got = batched.search_batched(seeds_t, succ_t, *caps)
     want = batched.search_batched_plain(seeds_t, succ_t, *caps)
-    torch.cuda.synchronize()
-    worst = 0
-    for name, a, b in zip(SEARCH_OUTPUTS, got, want):
-        if a.numel() and a.shape == b.shape:
-            worst = max(worst, int((a.long() - b.long()).abs().max()))
-        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
-            bad = int((a != b).reshape(len(seeds), -1).any(1).sum()) if a.shape == b.shape else -1
-            raise AssertionError(f"search kernel {name} differs from plain at {where}: "
-                                 f"{a.dtype} {tuple(a.shape)} vs {b.dtype} {tuple(b.shape)}, "
-                                 f"{bad} seeds differ")
-    return collections.Counter(got[0].cpu().tolist()), worst
+    want_max = int(want[2].max()) if len(seeds) else 0
+    worst = _same_outputs(batched.search_batched(seeds_t, succ_t, *caps), want, len(seeds),
+                          f"{where}, default tile")
+    for tile in batched.TILES:
+        got, nseen_max = batched._search(seeds_t, succ_t, *caps, tile=tile)
+        torch.cuda.synchronize()
+        worst = max(worst, _same_outputs(got, want, len(seeds), f"{where}, T={tile}"))
+        if nseen_max != want_max:
+            raise AssertionError(f"search kernel's largest nseen {nseen_max} != {want_max} at "
+                                 f"{where}, T={tile}")
+    return collections.Counter(want[0].cpu().tolist()), worst
+
+
+def _search_bad_seed(g):
+    """A seed outside the table: the dispatcher raises ValueError on the
+    card; at every tile width the launch counts it in its word, writes
+    nothing for it, writes the other seeds' outputs as the plain version
+    does, and nothing past the ends of outputs laid at offset 8 inside
+    sentinel-filled buffers."""
+    import torch
+
+    from ploidyfrost_tpu_torch.bubble import batched
+
+    good = batched.canonical_seeds(g)[:60]
+    S, n2, ms = len(good) + 2, 2 * len(g), batched.MAX_SEEN
+    seeds = np.concatenate([good[:20], [n2], good[20:], [-2]]).astype(np.int32)
+    seeds_t = torch.from_numpy(seeds).cuda()
+    succ_t = torch.from_numpy(np.ascontiguousarray(g._succ, dtype=np.int32)).cuda()
+    for bad in (seeds_t, seeds_t[20:21]):
+        try:
+            batched.search_batched(bad, succ_t)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"search_batched took seeds outside [0, {n2}) on the card")
+    keep = torch.from_numpy((seeds >= 0) & (seeds < n2)).cuda()
+    want = batched.search_batched_plain(seeds_t[keep], succ_t)
+    before = batched.SEARCH_LAUNCHES
+    for tile in batched.TILES:
+        widths = (1, 1, 1, ms, 1)
+        fill = (0xA5, -7, 0xA5, -7, -7)
+        bufs = [torch.full(((S + 16) * w,), f, dtype=d, device="cuda") for d, w, f in zip(
+            (torch.uint8, torch.int32, torch.uint8, torch.int32, torch.int32), widths, fill)]
+        outs = [b[8 * w : (8 + S) * w].view(S, w) if w > 1 else b[8 : 8 + S]
+                for b, w in zip(bufs, widths)]
+        word = torch.full((2,), -1, dtype=torch.int32, device="cuda")
+        batched._launch(seeds_t, succ_t, ms, batched.MAX_STACK, batched.MAX_STEPS, outs, word,
+                        tile)
+        torch.cuda.synchronize()
+        if word[0].item() != 2:
+            raise AssertionError(f"T={tile}: the word counts {word[0].item()} seeds outside "
+                                 "the table, not 2")
+        for b, o, w, f in zip(bufs, outs, widths, fill):
+            if not (bool((b[: 8 * w] == f).all()) and bool((b[(8 + S) * w :] == f).all())):
+                raise AssertionError(f"T={tile}: the search kernel wrote past an output's ends")
+            if not bool((o[~keep] == f).all()):
+                raise AssertionError(f"T={tile}: the search kernel wrote a bad seed's output")
+        _same_outputs([o[keep] for o in outs], want, S - 2, f"the good seeds beside bad ones, T={tile}")
+    batched.SEARCH_LAUNCHES = before
 
 
 def check_search() -> tuple[int, int]:
     """The search kernel against its plain version on the card over the
-    graph classes at every cap set of SEARCH_CAPS, and on an empty seed
-    list; returns (cases, largest |difference|)."""
+    graph classes at every cap set of SEARCH_CAPS, on 97 and 1 seeds
+    (97 is no multiple of any tile shape's seeds a block), on an empty
+    seed list, and with seeds outside the table; returns (cases, largest
+    |difference|)."""
     import collections
 
     from ploidyfrost_tpu_torch.bubble import batched
 
     outcomes = collections.Counter()
     cases = worst = 0
-    for name, g in _search_graphs():
+    graphs = _search_graphs()
+    for name, g in graphs:
         seeds = batched.canonical_seeds(g)
         for caps in SEARCH_CAPS:
             stats, err = _search_same(seeds, g._succ, caps, f"{name} caps {caps}")
             outcomes += stats
             worst = max(worst, err)
             cases += 1
+    name, g = graphs[0]
+    seeds = batched.canonical_seeds(g)
+    for S in (97, 1):
+        stats, err = _search_same(seeds[:S], g._succ, SEARCH_CAPS[0], f"{name}'s first {S} seeds")
+        worst = max(worst, err)
+        cases += 1
     _search_same(np.zeros(0, np.int32), g._succ, SEARCH_CAPS[0], "an empty seed list")
+    _search_bad_seed(g)
     missing = {batched.STAT_NONE, batched.STAT_STALL_CYCLE, batched.STAT_CYCLE_EXIT,
                batched.STAT_ABORT, batched.STAT_BUBBLE, batched.STAT_OVERFLOW} - set(outcomes)
     if missing:
         raise AssertionError(f"the search cases never reached outcomes {sorted(missing)}")
-    log(f"phase 2: search kernel bit-exact against its plain version on {cases + 1} cases "
-        f"(9 graphs x {len(SEARCH_CAPS)} cap sets, and an empty seed list); outcomes "
-        f"{dict(sorted(outcomes.items()))}")
+    log(f"phase 2: search kernel bit-exact against its plain version at T in {batched.TILES} "
+        f"and through the dispatcher on {cases + 1} cases each ({len(graphs)} graphs x "
+        f"{len(SEARCH_CAPS)} cap sets, 97 and 1 seeds, an empty seed list); outcomes "
+        f"{dict(sorted(outcomes.items()))}; seeds outside the table raise ValueError, are "
+        "counted in the launch's word, and no output is written for them or past its ends")
     return cases + 1, worst
 
 
 def check_search_real(gfa: str, name: str) -> tuple[int, int]:
-    """The search kernel against its plain version on a real graph's
-    seeds, at the default caps and at small ones; returns (cases,
-    largest |difference|)."""
+    """The search kernel at every tile width against its plain version on
+    a real graph's seeds, at the default caps and at small ones; returns
+    (cases, largest |difference|)."""
     from ploidyfrost_tpu_torch.bubble import batched
     from ploidyfrost_tpu_torch.graph.cdbg import CDBGraph
 
@@ -517,18 +692,23 @@ def check_search_real(gfa: str, name: str) -> tuple[int, int]:
     seeds = batched.canonical_seeds(g)
     caps = [SEARCH_CAPS[0], (8, 8, 16)]
     res = [_search_same(seeds, g._succ, c, f"{name} caps {c}") for c in caps]
-    log(f"search kernel bit-exact against its plain version on {name}'s {len(seeds)} seeds "
-        f"({len(g)} unitigs) at caps {caps}: outcomes "
+    log(f"search kernel bit-exact against its plain version at T in {batched.TILES} on {name}'s "
+        f"{len(seeds)} seeds ({len(g)} unitigs) at caps {caps}: outcomes "
         f"{[dict(sorted(x.items())) for x, _ in res]}")
     return len(caps), max(err for _, err in res)
 
 
-def time_search(gfa: str, reps: int = 50) -> dict:
-    """The search kernel at a real graph's seeds (bench5m's), per launch
-    with CUDA events and L2 scrubbed: the bare launch and the main-path
-    call (search_batched, with its argument checks); the plain version
-    once; search_seeds end to end (its copies in and out included, no
-    replay); the bound from this run's bytes and DFS steps."""
+def time_search(gfa: str, name: str, baseline_lib: str | None, reps: int = 60) -> dict:
+    """The search kernel at a real graph's seeds, per launch with CUDA
+    events and L2 scrubbed: the bare launch at the default tile width and
+    the baseline kernel (the C ABI without word and tile) if built, in
+    turns (baseline, kernel, kernel, baseline), the main-path call
+    (search_batched, its word read back), then every tile width in
+    turns; the plain version
+    once, with the DFS steps and the longest seed's; search_seeds end to
+    end (its copies in and out included, no replay); a one-element
+    kernel under the same timing (the launch floor); the bound from this
+    run's bytes and DFS steps."""
     import torch
 
     from ploidyfrost_tpu_torch.bubble import batched
@@ -541,17 +721,48 @@ def time_search(gfa: str, reps: int = 50) -> dict:
     seeds_t = torch.from_numpy(seeds.astype(np.int32)).cuda()
     succ_t = torch.from_numpy(np.ascontiguousarray(g._succ, dtype=np.int32)).cuda()
     caps = (batched.MAX_SEEN, batched.MAX_STACK, batched.MAX_STEPS)
+    counts = {}
+    want = batched.search_batched_plain(seeds_t, succ_t, *caps, counts=counts)
     outs = batched.search_batched(seeds_t, succ_t, *caps)
+    word = torch.empty(2, dtype=torch.int32, device="cuda")
     scrub = scrub_buffer()
     before = batched.SEARCH_LAUNCHES
-    runs = {"ms": [], "main_ms": []}
-    for name, f in (("ms", lambda: batched._launch(seeds_t, succ_t, *caps, outs)),
-                    ("main_ms", lambda: batched.search_batched(seeds_t, succ_t, *caps))) * 2:
-        runs[name] += event_times(f, reps // 2, scrub)
+
+    def kernel(tile=0):
+        return lambda: batched._launch(seeds_t, succ_t, *caps, outs, word, tile)
+
+    base = None
+    if baseline_lib:
+        fn = ctypes.CDLL(baseline_lib).pf_superbubble_search
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 6]
+        fn.restype = ctypes.c_int
+        stream = torch.cuda.current_stream().cuda_stream
+        base_outs = [torch.empty_like(x) for x in outs]
+
+        def base():
+            if fn(seeds_t.data_ptr(), len(seeds), succ_t.data_ptr(), len(g), *caps,
+                  *(x.data_ptr() for x in base_outs), stream):
+                raise RuntimeError("baseline search launch failed")
+
+        base()
+        torch.cuda.synchronize()
+        _same_outputs(base_outs, want, len(seeds), f"{name}, the baseline kernel")
+
+    runs = {"ms": [], "baseline_ms": [], "main_ms": []}
+    for key, f in (("baseline_ms", base), ("ms", kernel()), ("main_ms", lambda: batched.search_batched(
+            seeds_t, succ_t, *caps)), ("ms", kernel()), ("baseline_ms", base)):
+        if f is not None:
+            runs[key] += event_times(f, reps // 2, scrub)
+    tiles = {tile: [] for tile in batched.TILES}
+    for order in (batched.TILES, batched.TILES[::-1]):
+        for tile in order:
+            tiles[tile] += event_times(kernel(tile), reps // 2, scrub)
     batched.SEARCH_LAUNCHES = before  # timing launches are not the main path's
-    counts = {}
+    torch.cuda.synchronize()
+    _same_outputs(outs, want, len(seeds), f"{name}, after the timing launches")
     plain_ms = spread(event_times(
-        lambda: batched.search_batched_plain(seeds_t, succ_t, *caps, counts=counts), 1, scrub))[0]
+        lambda: batched.search_batched_plain(seeds_t, succ_t, *caps), 1, scrub))[0]
     walls = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -559,6 +770,7 @@ def time_search(gfa: str, reps: int = 50) -> dict:
         batched.search_seeds(g, seeds, "cuda")
         walls.append(time.perf_counter() - t0)
     batched.SEARCH_LAUNCHES = before
+    launch_ms = spread(event_times(lambda: word[:1].fill_(0), reps, scrub))[0]
     S, n, ms = len(seeds), len(g), caps[0]
     nbytes = n * 32 + S * 4 + S * (1 + 4 + 1 + 4 * ms + 4)
     # a floor on the integer work: each DFS step probes its (up to) 4
@@ -567,12 +779,38 @@ def time_search(gfa: str, reps: int = 50) -> dict:
     ops = counts["steps"] * 4 * ms * 8
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ALU_OPS_PER_S * 1e3
-    res = {"seeds": S, "unitigs": n, "steps": counts["steps"], "bytes": nbytes, "ops": ops,
-           "plain_ms": plain_ms, "search_seeds_s": spread(walls),
-           "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-    for name, times in runs.items():
-        res[name] = spread(times)
+    res = {"seeds": S, "unitigs": n, "steps": counts["steps"],
+           "max_seed_steps": counts["max_seed_steps"], "bytes": nbytes, "ops": ops,
+           "plain_ms": plain_ms, "search_seeds_s": spread(walls), "launch_ms": launch_ms,
+           "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "tiles": {tile: spread(times) for tile, times in tiles.items()}}
+    for key, times in runs.items():
+        if times:
+            res[key] = spread(times)
     return res
+
+
+def log_search_times(name: str, ts: dict, latency: dict, default_tile: int):
+    """One line of time_search's numbers, with the latency floor: the
+    launch floor plus the longest seed's read rounds (steps + 1) times
+    one cold dependent load."""
+    ts["floor_ms"] = ts["launch_ms"] + (ts["max_seed_steps"] + 1) * latency["cold_us"] / 1e3
+    ts["share"] = ts["bound_ms"] / ts["ms"][0]
+    tiles = ", ".join(f"T={t} {v[0]:.4f} [{v[1]:.4f}, {v[2]:.4f}]" for t, v in ts["tiles"].items())
+    base = (f"; baseline kernel in turns {ts['baseline_ms'][0]:.4f} ms [{ts['baseline_ms'][1]:.4f}, "
+            f"{ts['baseline_ms'][2]:.4f}]" if "baseline_ms" in ts else "")
+    log(f"search kernel at {name}'s {ts['seeds']} seeds ({ts['unitigs']} unitigs, {ts['steps']} "
+        f"DFS steps in all, {ts['max_seed_steps']} the longest seed's), per launch (median [min, "
+        f"max]): kernel (T={default_tile}) {ts['ms'][0]:.4f} ms [{ts['ms'][1]:.4f}, "
+        f"{ts['ms'][2]:.4f}]{base}; main-path call (search_batched, its word read back) "
+        f"{ts['main_ms'][0]:.4f} ms [{ts['main_ms'][1]:.4f}, {ts['main_ms'][2]:.4f}]; every tile "
+        f"width: {tiles}; plain {ts['plain_ms']:.2f} ms; bound {ts['bound_ms']:.4f} ms "
+        f"({ts['bound_by']}: {ts['bytes']} bytes, {ts['ops']} operations), {100 * ts['share']:.1f}% "
+        f"of bound; latency floor {ts['floor_ms']:.4f} ms (one-element kernel "
+        f"{ts['launch_ms']:.4f} ms + {ts['max_seed_steps'] + 1} read rounds x "
+        f"{latency['cold_us']:.3f} us); search_seeds end to end (succ and seeds in, outputs out) "
+        f"{ts['search_seeds_s'][0]:.4f} s [{ts['search_seeds_s'][1]:.4f}, "
+        f"{ts['search_seeds_s'][2]:.4f}]")
 
 
 def profile_batch(B=16384, L=160, k=25) -> list[str]:
@@ -1152,11 +1390,10 @@ def nw_wavefront(device: str, work: str, bench_pairs: list):
         f"copies {busy['copy_s']:.4f} s, wall {wall:.4f} s, the card busy "
         f"{100 * busy['busy_share']:.1f}% of it")
 
-    calls0 = dict(batch_nw.ENGINE_CALLS)
-    with without_native_nw():
-        n = _traced_run(device, "gold", "nonative", ["-l", "10", "-u", "83"])
+    n = in_fresh_process("traced_run_without_native_nw", device, "gold", "nonative",
+                         ["-l", "10", "-u", "83"])
     check_golden_tables(GOLD_INDEL, "nonative")
-    delta = {k: batch_nw.ENGINE_CALLS[k] - calls0[k] for k in calls0}
+    delta = n.pop("engines")
     if delta["device"] < 1 or delta["numpy"] or delta["native"]:
         raise AssertionError(f"run without the native NW library used engines {delta}")
     if device == "cuda" and min(n.values()) < 1:
@@ -1191,26 +1428,50 @@ def _traced_run(device: str, src_prefix: str, out: str, cutoffs: list[str]) -> d
             for name in ("findSuperBubble", "ploidyEstimation")}
 
 
-def tracing(device: str, work: str, golden_dir: str, bench_dir: str):
-    """Phase 10: the phase traces of the single_diploid `run`, and the
-    card's busy share of bench5m's superbubble search."""
+def traced_run_without_native_nw(device: str, src_prefix: str, out: str,
+                                 cutoffs: list[str]) -> dict:
+    """`_traced_run` with the native NW library withheld, and the NW
+    engines it called (under "engines")."""
+    from ploidyfrost_tpu_torch.align import batch_nw
+
+    calls0 = dict(batch_nw.ENGINE_CALLS)
+    with without_native_nw():
+        n = _traced_run(device, src_prefix, out, cutoffs)
+    n["engines"] = {k: batch_nw.ENGINE_CALLS[k] - calls0[k] for k in calls0}
+    return n
+
+
+def in_fresh_process(name: str, *args):
+    """chip_smoke.<name>(*args) run in a new Python process in this
+    directory; its result comes back as JSON. torch.profiler loses the
+    device events of whole sessions once a process has run a minute or
+    more (on an H100 80GB HBM3, in no pattern that a wait before or after
+    the traced block, or a forced CUPTI flush, changed), and none in a
+    process that has just started, so every check that reads a trace or
+    a profile runs in a process of its own."""
+    code = ("import json, sys; import chip_smoke; "
+            "print('RESULT ' + json.dumps(getattr(chip_smoke, sys.argv[1])(*json.loads(sys.argv[2]))))")
+    proc = subprocess.run([sys.executable, "-c", code, name, json.dumps(args)], cwd=os.getcwd(),
+                          env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
+                          timeout=900)
+    results = [line for line in proc.stdout.splitlines() if line.startswith("RESULT ")]
+    if proc.returncode != 0 or not results:
+        raise RuntimeError(f"{name} in a fresh process returned {proc.returncode}:\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return json.loads(results[-1][len("RESULT "):])
+
+
+def profile_find_superbubbles(gfa: str, device: str) -> dict:
+    """bench5m's findSuperBubble twice without the profiler, then once
+    under it: the walls, the card's busy share, the kernels it ran and the
+    search kernel's among them."""
     from torch.autograd import DeviceType
 
     from ploidyfrost_tpu_torch.bubble.batched import find_superbubbles_device
     from ploidyfrost_tpu_torch.graph.cdbg import CDBGraph
     from ploidyfrost_tpu_torch.util.profiling import device_busy, profiled
 
-    os.makedirs(work, exist_ok=True)
-    os.chdir(work)
-    n = _traced_run(device, os.path.join(golden_dir, "gold"), "traced", ["-l", "10", "-u", "37"])
-    check_golden_tables(GOLD, "traced")
-    if device == "cuda" and n["findSuperBubble"] < 1:
-        raise AssertionError(f"the traces of the single_diploid run hold CUDA kernels {n}")
-    log(f"phase 10: `run` under PLOIDYFROST_TRACE (single_diploid): tables byte-identical, "
-        f"findSuperBubble.json holds {n['findSuperBubble']} CUDA kernels, ploidyEstimation.json "
-        f"{n['ploidyEstimation']} (its sites pass is host code while the native NW kernel runs)")
-
-    g = CDBGraph.from_gfa(os.path.join(bench_dir, "bench5m.gfa"))
+    g = CDBGraph.from_gfa(gfa)
     plain = []
     for _ in range(2):
         _sync(device)
@@ -1223,17 +1484,43 @@ def tracing(device: str, work: str, golden_dir: str, bench_dir: str):
         find_superbubbles_device(g, 8, device=device)
         _sync(device)
         wall = time.time() - t0
-    busy = device_busy(prof, wall)
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
              and not e.name.startswith(("Memcpy", "Memset"))]
     search_us = sum(e.time_range.elapsed_us() for e in prof.events()
                     if e.device_type == DeviceType.CUDA and "superbubble_search" in e.name)
+    return {"unitigs": len(g), "bubbles": len(bubbles), "plain": plain, "wall": wall,
+            "busy": device_busy(prof, wall), "names": names, "search_us": search_us}
+
+
+def tracing(device: str, work: str, golden_dir: str, bench_dir: str):
+    """Phase 10: the phase traces of the single_diploid `run`, and the
+    card's busy share of bench5m's superbubble search, each in a fresh
+    process."""
+    os.makedirs(work, exist_ok=True)
+    os.chdir(work)
+    n = in_fresh_process("_traced_run", device, os.path.join(golden_dir, "gold"), "traced",
+                         ["-l", "10", "-u", "37"])
+    check_golden_tables(GOLD, "traced")
+    if device == "cuda" and n["findSuperBubble"] < 1:
+        raise AssertionError(f"the traces of the single_diploid run hold CUDA kernels {n}")
+    log(f"phase 10: `run` under PLOIDYFROST_TRACE (single_diploid): tables byte-identical, "
+        f"findSuperBubble.json holds {n['findSuperBubble']} CUDA kernels, ploidyEstimation.json "
+        f"{n['ploidyEstimation']} (its sites pass is host code while the native NW kernel runs)")
+
+    r = in_fresh_process("profile_find_superbubbles", os.path.join(bench_dir, "bench5m.gfa"),
+                         device)
+    plain, wall, busy, names, search_us = (r[key] for key in ("plain", "wall", "busy", "names",
+                                                             "search_us"))
     n_search = sum("superbubble_search" in x for x in names)
     if device == "cuda" and n_search < 1:
         raise AssertionError(f"the profiler saw no search kernel in findSuperBubble: {names[:20]}")
-    log(f"phase 10: bench5m findSuperBubble ({len(g)} unitigs, {len(bubbles)} bubbles): "
+    # the seeds' range check and the seen width come from the search's own word
+    reductions = [x for x in names if "reduce" in x.lower()]
+    if reductions:
+        raise AssertionError(f"findSuperBubble ran reduction kernels: {reductions[:5]}")
+    log(f"phase 10: bench5m findSuperBubble ({r['unitigs']} unitigs, {r['bubbles']} bubbles): "
         f"{plain[0]:.3f} s and {plain[1]:.3f} s without the profiler; under it {wall:.3f} s, "
-        f"{busy['kernels']} kernels ({n_search} of them the search kernel, "
+        f"{busy['kernels']} kernels ({n_search} of them the search kernel, none a reduction, "
         f"{search_us / 1e3:.3f} ms), kernel time {busy['kernel_s']:.4f} s, copies "
         f"{busy['copy_s']:.4f} s: the card busy {100 * busy['busy_share']:.1f}% of the profiled "
         f"phase (idle {100 * (1 - busy['busy_share']):.1f}%), "
@@ -1395,12 +1682,27 @@ def multi_card(work: str, bench: str, reads: str) -> dict:
     return res
 
 
+def card_name_and_power() -> str:
+    """The first card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30,
+    )
+    if smi.returncode != 0 or not smi.stdout.strip():
+        raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description="Smoke test of ploidyfrost_tpu_torch on one GPU.")
     ap.add_argument("--baseline-cu", help="an earlier K1 source, C ABI pf_extract_canonical"
                     "(codes, B, L, k, out, stream), to build and time beside K1 in this call")
+    ap.add_argument("--baseline-search-cu",
+                    help="an earlier search kernel source, C ABI pf_superbubble_search(seeds, S, "
+                    "succ, n, ms, mstk, max_steps, status, psec, nseen, seen, cyc, stream), to "
+                    "build and time beside the search kernel in this call")
     ap.add_argument("--profile-multi", action="store_true",
                     help="run multi3x5m under cProfile and print its 40 largest entries")
     args = ap.parse_args()
@@ -1413,6 +1715,8 @@ def main() -> int:
     if "jax" in sys.modules or "ploidyfrost_tpu" in sys.modules:
         raise AssertionError("the port pulled in jax or ploidyfrost_tpu")
     baseline_cu = os.path.abspath(args.baseline_cu) if args.baseline_cu else None
+    baseline_search_cu = (os.path.abspath(args.baseline_search_cu) if args.baseline_search_cu
+                          else None)
     # phases 1-10 on one card, however many the machine holds; phase 11
     # asks for more with --devices=N
     os.environ["PLOIDYFROST_DEVICES"] = "1"
@@ -1420,9 +1724,11 @@ def main() -> int:
     os.makedirs(WORK)
 
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
-        f"{torch.cuda.get_device_name(0)}")
-    build_s, baseline_lib = build_kernels(baseline_cu)
+        f"{torch.cuda.get_device_name(0)}, {card_name_and_power()}")
+    build_s, baseline_lib, baseline_search_lib, probe_lib = build_kernels(
+        baseline_cu, baseline_search_cu)
     log(f"phase 1: kernels built in {build_s:.2f} s")
+    default_tile = search_attributes()
 
     err, n_cases = check_extract()
     log(f"phase 2: K1 bit-exact against its plain version on {n_cases} cases, "
@@ -1471,17 +1777,11 @@ def main() -> int:
     bench_gfa = os.path.join(bench, "bench5m.gfa")
     cases, err = check_search_real(bench_gfa, "bench5m")
     search_cases, search_err = search_cases + cases, max(search_err, err)
-    ts = time_search(bench_gfa)
-    search_share = ts["bound_ms"] / ts["ms"][0]
-    log(f"search kernel at bench5m's {ts['seeds']} seeds ({ts['unitigs']} unitigs, "
-        f"{ts['steps']} DFS steps in all), per launch (median [min, max]): kernel "
-        f"{ts['ms'][0]:.4f} ms [{ts['ms'][1]:.4f}, {ts['ms'][2]:.4f}], main-path call "
-        f"(search_batched with its checks) {ts['main_ms'][0]:.4f} ms [{ts['main_ms'][1]:.4f}, "
-        f"{ts['main_ms'][2]:.4f}], plain {ts['plain_ms']:.2f} ms, bound {ts['bound_ms']:.4f} ms "
-        f"({ts['bound_by']}: {ts['bytes']} bytes, {ts['ops']} operations), "
-        f"{100 * search_share:.1f}% of bound; search_seeds end to end (succ and seeds in, "
-        f"outputs out) {ts['search_seeds_s'][0]:.4f} s [{ts['search_seeds_s'][1]:.4f}, "
-        f"{ts['search_seeds_s'][2]:.4f}]")
+    latency = load_latency_us(probe_lib)
+    log(f"dependent global load (one thread, a chain through 4 MB of 32-byte sectors): "
+        f"{latency['cold_us']:.3f} us cold (L2 scrubbed), {latency['warm_us']:.3f} us from L2")
+    ts = time_search(bench_gfa, "bench5m", baseline_search_lib)
+    log_search_times("bench5m", ts, latency, default_tile)
 
     t = time_extract(baseline_lib)
     ms = t["ms"][0]
@@ -1498,7 +1798,7 @@ def main() -> int:
         b = t["baseline_ms"]
         log(f"baseline K1 ({args.baseline_cu}) in the same call: {b[0]:.4f} ms "
             f"[{b[1]:.4f}, {b[2]:.4f}]")
-    kernels_seen = profile_batch()
+    kernels_seen = in_fresh_process("profile_batch")
     log(f"profiler, one add_reads of a [16384, 160] batch on the card: {kernels_seen}")
     if len(kernels_seen) != 1 or "extract_canonical" not in kernels_seen[0]:
         raise AssertionError(f"a counter batch ran {kernels_seen}, not K1 alone")
@@ -1516,6 +1816,8 @@ def main() -> int:
     multi = multi3x5m("cuda", os.path.join(WORK, "multi3x5m"), profile=args.profile_multi)
     cases, err = check_search_real(multi["gfa"], "multi3x5m")
     search_cases, search_err = search_cases + cases, max(search_err, err)
+    ts_multi = time_search(multi["gfa"], "multi3x5m", baseline_search_lib)
+    log_search_times("multi3x5m", ts_multi, latency, default_tile)
     log(f"phase 6: multi3x5m passed; search kernel bit-exact on {search_cases} cases in all")
 
     torch_programs("cuda", os.path.join(WORK, "programs"),
@@ -1543,10 +1845,7 @@ def main() -> int:
     if "jax" in sys.modules or "ploidyfrost_tpu" in sys.modules:
         raise AssertionError("the port pulled in jax or ploidyfrost_tpu")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=30,
-    )
+    smi = card_name_and_power()
     os.chdir(ROOT)
     shutil.rmtree(WORK, ignore_errors=True)
     kernels = {"kernels": [{
@@ -1573,22 +1872,35 @@ def main() -> int:
         "launches_multi3x5m": multi["search_launches"],
         "launches_sharded_one_rank": cards["search_launches"],
         "cases": search_cases,
+        "tiles_checked": list(batched.TILES),
         "max_abs_err": float(search_err),
+        "tile": default_tile,
         "ms": ts["ms"][0],
         "plain_ms": ts["plain_ms"],
         "bound_ms": ts["bound_ms"],
         "bound_by": ts["bound_by"],
         "library_ms": None,
-        "share_of_bound": search_share,
+        "share_of_bound": ts["share"],
+        "main_ms": ts["main_ms"][0],
+        "latency_floor_ms": ts["floor_ms"],
+        "max_seed_steps": ts["max_seed_steps"],
+        "baseline_ms": ts["baseline_ms"][0] if "baseline_ms" in ts else None,
+        "ms_by_tile": {str(k): v[0] for k, v in ts["tiles"].items()},
+        "multi3x5m": {"seeds": ts_multi["seeds"], "ms": ts_multi["ms"][0],
+                      "main_ms": ts_multi["main_ms"][0], "bound_ms": ts_multi["bound_ms"],
+                      "share_of_bound": ts_multi["share"],
+                      "latency_floor_ms": ts_multi["floor_ms"],
+                      "max_seed_steps": ts_multi["max_seed_steps"],
+                      "baseline_ms": (ts_multi["baseline_ms"][0] if "baseline_ms" in ts_multi
+                                      else None),
+                      "ms_by_tile": {str(k): v[0] for k, v in ts_multi["tiles"].items()}},
     }]}
-    if smi.returncode != 0 or not smi.stdout.strip():
-        raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    print(smi)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
-        "count": 1,
+        "count": torch.cuda.device_count(),
     }}))
     return 0
 

@@ -39,13 +39,16 @@ Per-seed state (MAX_SEEN slots):
           the reference's std::stack behavior)
 
 `search_batched` dispatches by the tensors' device alone: CUDA tensors
-launch the kernel csrc/superbubble_search.cu (one warp a seed, the whole
-bounded DFS of every seed in one launch, each seed stopping on its own
-condition as under the JAX package's vmapped `lax.while_loop`; built
-with nvcc at first use like K1, kmer/extract.build) or raise; CPU
-tensors take the plain version `search_batched_plain`, one torch loop
-over all seeds in which every state update of a step is applied only to
-the lanes still active, so that finished lanes stay frozen.
+launch the kernel csrc/superbubble_search.cu (a tile of lanes a seed,
+several seeds a warp, the whole bounded DFS of every seed in one launch,
+each seed stopping on its own condition as under the JAX package's
+vmapped `lax.while_loop`; built with nvcc at first use like K1,
+kmer/extract.build) or raise; CPU tensors take the plain version
+`search_batched_plain`, one torch loop over all seeds in which every
+state update of a step is applied only to the lanes still active, so
+that finished lanes stay frozen. On the card the seeds' range check and
+the largest `nseen` come from the launch itself (one 8-byte word read
+back), so a search is one kernel and one host sync.
 """
 
 from __future__ import annotations
@@ -71,8 +74,10 @@ MAX_STEPS = 4 * MAX_STACK
 MAX_CHUNK = 1 << 17  # seeds a plain-version call (bounds its [S, 4, MS] temporaries)
 # steps between the plain version's early-exit checks (each one host sync)
 EXIT_CHECK_EVERY = 8
-# the kernel keeps one stack a warp in shared memory: 4 warps x this many ints
+# the kernel keeps one stack a seed in shared memory, 20 bytes an entry
 MAX_STACK_CAP = 1024
+# lanes a seed the kernel is built for; 0 asks for the one it defaults to
+TILES = (4, 8, 16, 32)
 
 # kernel launches made by `search_batched` (plain int; a run sets it to 0
 # and reads it back to show the main path went through the kernel)
@@ -101,7 +106,8 @@ def search_batched_plain(seed, succ_node, ms=MAX_SEEN, mstk=MAX_STACK, max_steps
     outputs (see `search_batched`). The body is the JAX `search_one` body
     line for line, on a leading seed axis, with one-hot masks instead of
     scatters, in int64. With a dict `counts`, counts["steps"] receives the
-    number of DFS steps all seeds took together (one host sync a step).
+    number of DFS steps all seeds took together and counts["max_seed_steps"]
+    the most that one seed took (one host sync a step).
     """
     if ms > 32:
         # the cycle-set travels as a uint32 bitmask
@@ -130,10 +136,12 @@ def search_batched_plain(seed, succ_node, ms=MAX_SEEN, mstk=MAX_STACK, max_steps
 
     if counts is not None:
         counts["steps"] = 0
+        seed_steps = torch.zeros(S, dtype=i64, device=dev)
     for step in range(max_steps):
         act = (sp > 0) & ~done & ~ovf  # the while_loop cond, per lane
         if counts is not None:
             counts["steps"] += int(act.sum())
+            seed_steps += act
         if step % EXIT_CHECK_EVERY == 0 and not bool(act.any()):
             break
         a1 = act[:, None]
@@ -233,6 +241,8 @@ def search_batched_plain(seed, succ_node, ms=MAX_SEEN, mstk=MAX_STACK, max_steps
         psec = torch.where(closed, top, psec)
         done = done | closed
 
+    if counts is not None:
+        counts["max_seed_steps"] = int(seed_steps.max()) if S else 0
     # stack drained without closing: STAT_NONE / STAT_STALL_CYCLE
     # (CDBG.cpp:2813-2822); caps exceeded: host fallback
     ovf = ovf | (~done & (sp > 0))
@@ -249,7 +259,8 @@ def search_batched_plain(seed, succ_node, ms=MAX_SEEN, mstk=MAX_STACK, max_steps
 
 
 def _check_search(seed, succ_node, ms, mstk, max_steps):
-    """Raise on what the kernel does not take."""
+    """Raise on what the kernel does not take. The seeds' range is checked
+    here on the CPU only: on the card the launch checks it (`_search`)."""
     if seed.dtype != torch.int32 or seed.dim() != 1:
         raise TypeError(f"seed must be a 1-d int32 tensor, got {seed.dtype} {tuple(seed.shape)}")
     if succ_node.dtype != torch.int32 or succ_node.dim() != 3 or tuple(succ_node.shape[1:]) != (2, 4):
@@ -271,7 +282,7 @@ def _check_search(seed, succ_node, ms, mstk, max_steps):
     n = succ_node.shape[0]
     if 2 * n > _INT32_MAX:
         raise ValueError(f"packed handles of {n} unitigs do not fit int32")
-    if seed.numel():
+    if seed.device.type == "cpu" and seed.numel():
         lo, hi = (int(x) for x in torch.aminmax(seed))
         if lo < 0 or hi >= 2 * n:
             raise ValueError(f"seed handles in [{lo}, {hi}] outside [0, {2 * n}) of {n} unitigs")
@@ -284,25 +295,43 @@ def search_batched(seed, succ_node, ms=MAX_SEEN, mstk=MAX_STACK, max_steps=MAX_S
     4] int32 packed successors (-1 = none); both contiguous, on one
     device. Returns (status u8 [S], psec i32 [S], nseen u8 [S], seen i32
     [S, ms], cyc i32 [S]: the uint32 cycle bitmask's bits) on that
-    device. CUDA tensors launch the kernel, once for all seeds, or raise;
-    CPU tensors take the plain version, MAX_CHUNK seeds a call."""
+    device. CUDA tensors launch the kernel, once for all seeds, and read
+    one word back, or raise; CPU tensors take the plain version,
+    MAX_CHUNK seeds a call. A seed outside [0, 2n) raises ValueError."""
+    return _search(seed, succ_node, ms, mstk, max_steps)[0]
+
+
+def _search(seed, succ_node, ms=MAX_SEEN, mstk=MAX_STACK, max_steps=MAX_STEPS, tile=0):
+    """`search_batched`, and the largest nseen as a host int (0 for no
+    seeds). On the card that comes from the launch's word, with the count
+    of seeds outside the table; `tile` picks the kernel's lanes a seed
+    (one of TILES, 0 for its default)."""
     _check_search(seed, succ_node, ms, mstk, max_steps)
     if seed.device.type == "cpu":
         outs = [
             search_batched_plain(seed[off : off + MAX_CHUNK], succ_node, ms, mstk, max_steps)
             for off in range(0, max(seed.numel(), 1), MAX_CHUNK)
         ]
-        return tuple(torch.cat(x) for x in zip(*outs))
+        outs = tuple(torch.cat(x) for x in zip(*outs))
+        return outs, int(outs[2].max()) if seed.numel() else 0
     S = seed.numel()
     dev = seed.device
-    status = torch.empty(S, dtype=torch.uint8, device=dev)
-    psec = torch.empty(S, dtype=torch.int32, device=dev)
-    nseen = torch.empty(S, dtype=torch.uint8, device=dev)
-    seen = torch.empty((S, ms), dtype=torch.int32, device=dev)
-    cyc = torch.empty(S, dtype=torch.int32, device=dev)
-    if S:
-        _launch(seed, succ_node, ms, mstk, max_steps, (status, psec, nseen, seen, cyc))
-    return status, psec, nseen, seen, cyc
+    outs = (
+        torch.empty(S, dtype=torch.uint8, device=dev),
+        torch.empty(S, dtype=torch.int32, device=dev),
+        torch.empty(S, dtype=torch.uint8, device=dev),
+        torch.empty((S, ms), dtype=torch.int32, device=dev),
+        torch.empty(S, dtype=torch.int32, device=dev),
+    )
+    if not S:
+        return outs, 0
+    word = torch.empty(2, dtype=torch.int32, device=dev)
+    _launch(seed, succ_node, ms, mstk, max_steps, outs, word, tile)
+    bad, nseen_max = word.tolist()
+    if bad:
+        n = succ_node.shape[0]
+        raise ValueError(f"{bad} seed handles outside [0, {2 * n}) of {n} unitigs")
+    return outs, nseen_max
 
 
 def _load():
@@ -315,35 +344,56 @@ def _load():
             fn.argtypes = [
                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                *[ctypes.c_void_p] * 5, ctypes.c_void_p,
+                *[ctypes.c_void_p] * 6, ctypes.c_int, ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
             _fn = fn
         return _fn
 
 
-def _launch(seed, succ_node, ms, mstk, max_steps, outs):
+def _launch(seed, succ_node, ms, mstk, max_steps, outs, word, tile=0):
     """One launch of the kernel on the current stream over CUDA tensors
-    already checked; raises on a CUDA error."""
+    already checked; `word` (2 int32) receives the count of seeds outside
+    the table and the largest nseen. Raises on a CUDA error."""
     global SEARCH_LAUNCHES
     fn = _load()
     stream = torch.cuda.current_stream(seed.device).cuda_stream
     with torch.cuda.device(seed.device):
         rc = fn(seed.data_ptr(), seed.numel(), succ_node.data_ptr(), succ_node.shape[0],
-                ms, mstk, max_steps, *(t.data_ptr() for t in outs), stream)
+                ms, mstk, max_steps, *(t.data_ptr() for t in outs), word.data_ptr(), tile,
+                stream)
     if rc != 0:
         raise RuntimeError(f"superbubble_search launch failed: CUDA error {rc}")
     SEARCH_LAUNCHES += 1
+
+
+def kernel_attributes(tile=0, mstk=MAX_STACK):
+    """The compiled kernel of `tile` lanes a seed (0: its default) at stack
+    cap `mstk`: a dict of tile, registers (a thread), local_bytes (a
+    thread), shared_bytes (a block), blocks_per_sm (resident), threads and
+    seeds (a block). Needs a card."""
+    from ..kmer.extract import build
+
+    fn = ctypes.CDLL(build("superbubble_search")).pf_superbubble_search_attrs
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 7)()
+    rc = fn(tile, mstk, out)
+    if rc != 0:
+        raise RuntimeError(f"superbubble_search attributes failed: CUDA error {rc}")
+    keys = ("tile", "registers", "local_bytes", "shared_bytes", "blocks_per_sm", "threads", "seeds")
+    return dict(zip(keys, out))
 
 
 def search_seeds(g: CDBGraph, seeds: np.ndarray, device="cuda", group=None):
     """Run the batched search for every packed seed. Returns host numpy
     (status u8, psec i32, nseen u8, seen[<=MS] i32, cyc-bitmask u32)
     arrays in seed order; `seen` is column-trimmed to the batch's max
-    live slot count. The successor table goes to the device once, as
-    int32. With `group` (parallel/mesh.Group) the seeds split over the
-    ranks (parallel/sharded.build_sharded_search_step) and every rank
-    gets all the outputs."""
+    live slot count (on one device from the launch's own word, with no
+    reduction). The successor table goes to the device once, as int32.
+    With `group` (parallel/mesh.Group) the seeds split over the ranks
+    (parallel/sharded.build_sharded_search_step) and every rank gets all
+    the outputs."""
     dev = resolve_device(group.device if group is not None else device)
     seeds = np.asarray(seeds)
     if seeds.size and (seeds.min() < 0 or seeds.max() > _INT32_MAX):
@@ -353,15 +403,18 @@ def search_seeds(g: CDBGraph, seeds: np.ndarray, device="cuda", group=None):
     if group is not None:
         from ..parallel.sharded import build_sharded_search_step
 
-        status, psec, nseen, seen, cyc = build_sharded_search_step(group)(seeds_t, succ_node)
+        outs, width = build_sharded_search_step(group)(seeds_t, succ_node), None
     else:
-        status, psec, nseen, seen, cyc = search_batched(seeds_t, succ_node)
-    mx = max(1, int(nseen.max()))
+        outs, width = _search(seeds_t, succ_node)
+    status, psec, nseen, seen, cyc = outs
+    nseen = nseen.cpu().numpy()
+    if width is None:  # the ranks' gathered outputs: from the host copy
+        width = int(nseen.max()) if nseen.size else 0
     return [
         status.cpu().numpy(),
         psec.cpu().numpy(),
-        nseen.cpu().numpy(),
-        seen[:, :mx].cpu().numpy(),
+        nseen,
+        seen[:, : max(1, width)].cpu().numpy(),
         cyc.cpu().numpy().view(np.uint32),
     ]
 
