@@ -7,7 +7,9 @@ Phases (any failure exits non-zero):
      one nvcc each, all at once); print, for each tile width T the
      search kernel is built for, its registers, local memory, shared
      memory a block and resident blocks a multiprocessor at the default
-     stack cap and at MAX_STACK_CAP;
+     stack cap and at MAX_STACK_CAP; the same of the EM kernel (kernel
+     A, csrc/gmm_em.cu) at n = 20000 and g = 9 and 17 and of the NW
+     kernel (kernel B, csrc/nw_wavefront.cu) at every tier 16..2048;
   2. hold kernel K1 (canonical k-mer extraction) bit-exact against its
      plain torch version on the card, over random codes with Ns and
      other invalid codes: k in {1, 2, 5, 16, 17, 25, 31}, L from k to
@@ -26,7 +28,17 @@ Phases (any failure exits non-zero):
      outside the table raises ValueError on the card, and the kernel
      writes nothing past the ends of output buffers laid in sentinel-
      filled ones; the same check on bench5m's and multi3x5m's real seeds
-     runs in phases 4 and 6, once their graphs exist;
+     runs in phases 4 and 6, once their graphs exist; kernel A equal to
+     its plain version (em_iterate_plain) on the card within 1e-12
+     relative on variances, weights and ll, with the same iteration
+     count, on the three golden frequency sets at g = 1..9, N = 0 and
+     N = 1 at g = 1..3, g = 17 and g = 1600 (shared memory past 48 KB),
+     and two runs bit-identical (bench5m's
+     and multi3x5m's frequencies follow in phases 4 and 6); kernel B
+     against its plain version (_wavefront) on the card and the native
+     kernel, every de-skewed window equal, on synthetic pairs of every
+     tier (dashes in A, an empty A, full-length rows), and whether the
+     whole buffers agree;
   3. golden: regenerate the single_diploid reads (100 kb diploid, k=25)
      and run the port's `pipeline` on the card: cutoffs (10, 37), the 12
      output tables byte-identical to tests/golden/single_diploid, the
@@ -50,7 +62,13 @@ Phases (any failure exits non-zero):
      time, K1 back to back in a CUDA graph, and, with --baseline-cu, an
      earlier K1 source with the C ABI (codes, B, L, k, out, stream)
      built and timed in the same call, in turns; and a profiler trace
-     of one counter batch, which must hold exactly one kernel, K1;
+     of one counter batch, which must hold exactly one kernel, K1; kernel
+     A on bench5m's frequencies at g = 1..9: equal to the plain version,
+     then timed a fit (CUDA events, L2 scrubbed, in turns with the plain
+     version) with its bound (passes x the larger of 8 bytes a point at
+     3.35 TB/s and 13 g + 2 fp64 operations a point at 34 TFLOP/s), a
+     grid barrier and one pass measured apart, and the latency floor
+     (launch + (count + 1) x (one pass + two barriers));
   5. colored golden: regenerate the multi_colored reads (3 diploid
      samples of one 60 kb genome, k=25) and run the colored path on the
      card: count, filter, union, color_graph, the .bfg_colors writer and
@@ -63,6 +81,7 @@ Phases (any failure exits non-zero):
      `pipeline-multi` on the card: ploidy 2, K1 launched, every stage's
      seconds, the wall, cutoffs, unitigs, colors, bubbles, peak memory;
      the search kernel bit-exact and timed at its seeds as in phase 4;
+     kernel A equal to its plain version on its frequencies;
   7. the two torch programs on the card: `build` of the bench5m reads
      with and without --device-build (byte-identical GFA; the link step
      timed both ways on that k-mer set, in turns), and
@@ -89,25 +108,34 @@ Phases (any failure exits non-zero):
      most 2000) and synthetic pairs of every tier
      from 16 to 2048, some with '-' in A, and one pair above the largest
      tier, through nw_matrices_batched on the card, bit-exact against
-     the native kernel and against the numpy wavefront; the three
-     engines timed on the real pairs; then `run` on that graph with the
-     native NW library withheld for that call, under PLOIDYFROST_TRACE:
-     the same 12 tables, ENGINE_CALLS["device"] > 0 and ["numpy"] == 0,
-     CUDA kernels in both phase traces;
+     the native kernel and against the numpy wavefront (the device
+     engine is kernel B); kernel B against its plain version chunk by
+     chunk on the real pairs (windows equal, whole buffers reported) and
+     timed a chunk in turns with the plain version, with its bound (codes
+     in and flags out at 3.35 TB/s against 20 integer operations a
+     cell); the three engines timed on the real pairs; then `run` on that
+     graph with the native NW library withheld for that call, under
+     PLOIDYFROST_TRACE: the same 12 tables, ENGINE_CALLS["device"] > 0
+     and ["numpy"] == 0, NW_LAUNCHES > 0, CUDA kernels in both phase
+     traces;
  10. tracing: the single_diploid `run` under PLOIDYFROST_TRACE (both
      phase traces written, CUDA kernels in findSuperBubble.json; its
      sites pass is host code while the native NW kernel runs, so
      ploidyEstimation.json holds kernels only in phase 9's run); then
      bench5m's superbubble search under the profiler: its kernels (the
      search kernel must be among them, no reduction kernel may be) and
-     the card's busy share of it;
+     the card's busy share of it; then bench5m's nine GMM fits under the
+     profiler: exactly nine EM kernels, no other kernel, and at most two
+     copies a fit (parameters in, result out), whatever the iterations;
  11. several cards (parallel/): the visible card count; (a) a one-rank
      NCCL group on cuda:0: ShardedKmerCounter over bench5m's reads with
      the table, histogram and instance count of KmerCounter on the same
      batches, both timed in turns with their K1 launches and the sharded
      flushes (key bytes, route + merge seconds); the GMM fits on
      bench5m's frequencies (gauss 1..9) through the group within 1e-12
-     relative of the single-device fits; the superbubble search through
+     relative of the single-device fits, both sides through kernel A
+     (one launch a fit on one device; a pass and an update an iteration
+     through the group); the superbubble search through
      the group equal to search_seeds and the bubbles equal, the search
      kernel launched through the group; (b) with two
      or more cards, `pipeline --devices=min(4, cards)` on bench5m as a
@@ -120,10 +148,12 @@ Phases 1-10 run on one card (PLOIDYFROST_DEVICES=1 for the CLI calls),
 whatever the machine holds. All five native host libraries must load.
 Every check that reads a profiler trace (phases 4, 9 and 10) runs in a
 fresh process of its own (in_fresh_process).
-Every pipeline path (phases 3-6) and the one-rank group's search must
-launch both kernels.
+Every pipeline path (phases 3-6 and 9) and the one-rank group's search
+must launch K1 and the search kernel, and the EM kernel at least once a
+fit (nine); every launch counter is set to 0 just before each path.
 
-The line before the last is the kernel table as one JSON object; the
+The line before the last is the kernel table as one JSON object (K1,
+the search, kernel A and kernel B); the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside it, the script exits non-zero and prints no
 result. It never imports jax or ploidyfrost_tpu.
@@ -836,6 +866,476 @@ def profile_batch(B=16384, L=160, k=25) -> list[str]:
             and not e.name.startswith(("Memcpy", "Memset"))]
 
 
+# ---------------------------------------------------------------------------
+# Kernel A, the GMM-EM loop (csrc/gmm_em.cu), and kernel B, the NW
+# wavefront (csrc/nw_wavefront.cu)
+
+EM_RTOL = 1e-12
+EM_ARGS = (1000, 5.0, 2.0, 0.01)  # max_iter, m_thre, n_thre, max_delta: the CLI's defaults
+FP64_OPS_PER_S = 34e12  # H100 SXM fp64 outside the tensor cores (NVIDIA data sheet)
+
+
+def read_frequencies(path: str) -> np.ndarray:
+    """An allele frequency file as `model` reads it (frequency 0)."""
+    from ploidyfrost_tpu_torch.model.gmm import GmmModel
+
+    model = GmmModel("cpu")
+    model.read_fre_file(path, 0.0)
+    return model.allele_fre
+
+
+def _em_init(g: int):
+    import torch
+
+    means = [i / (g + 1) for i in range(1, g + 1)]
+    return tuple(torch.tensor(x, dtype=torch.float64, device="cuda")
+                 for x in (means, [1.0 / g] * g, [0.01] * g))
+
+
+def em_fit_same(af_np: np.ndarray, g: int, where: str, em_args=EM_ARGS) -> dict:
+    """Kernel A's fit of af at g against the plain version on the card:
+    variances, weights and ll within EM_RTOL relative, the same count.
+    Returns {count, rel, abs, delta}: delta is the plain loop's last
+    delta-ll, the one that stopped it (how far the count was from
+    flipping: it stops at delta <= max_delta), None if no iteration ran."""
+    import torch
+
+    from ploidyfrost_tpu_torch.model import gmm
+
+    af = torch.from_numpy(np.ascontiguousarray(af_np, dtype=np.float64)).cuda()
+    args = (af, *_em_init(g), *em_args)
+    kv, kw, kll, kcount = gmm._em_iterate(*args)
+    pv, pw, pll, pcount, delta = gmm.em_loop_plain(*args)
+    delta = delta if pcount else None
+    got = np.concatenate([kv.numpy(), kw.numpy(), [float(kll)]])
+    want = np.concatenate([pv.cpu().numpy(), pw.cpu().numpy(), [float(pll)]])
+    if kcount != pcount:
+        raise AssertionError(f"EM kernel count {kcount} != plain {pcount} at {where}, g={g}; "
+                             f"the plain loop's last delta {delta}, max_delta {em_args[3]}")
+    both_nan = np.isnan(got) & np.isnan(want)
+    diff = np.where(both_nan, 0.0, np.abs(got - want))
+    bad = ~both_nan & ~(diff <= EM_RTOL * np.abs(want))
+    if bad.any():
+        raise AssertionError(f"EM kernel differs from plain at {where}, g={g}: {got} vs {want}")
+    rel = diff / np.where(both_nan | (want == 0), 1.0, np.abs(want))
+    return {"count": kcount, "rel": float(rel.max()), "abs": float(diff.max()), "delta": delta}
+
+
+def check_em_fits(sets: dict, gauss=range(1, 10), em_args=EM_ARGS) -> dict:
+    """em_fit_same at every g of `gauss` for each named frequency set;
+    returns {fits, worst_rel, worst_abs, counts: {name: [count a g]},
+    deltas: {name: [last delta a g]}}, and logs each set's fits."""
+    from ploidyfrost_tpu_torch.model import gmm
+
+    before = gmm.EM_LAUNCHES
+    res = {"fits": 0, "worst_rel": 0.0, "worst_abs": 0.0, "counts": {}, "deltas": {}}
+    for name, af in sets.items():
+        counts, deltas = [], []
+        for g in gauss:
+            r = em_fit_same(af, g, name, em_args)
+            res["fits"] += 1
+            res["worst_rel"] = max(res["worst_rel"], r["rel"])
+            res["worst_abs"] = max(res["worst_abs"], r["abs"])
+            counts.append(r["count"])
+            deltas.append(r["delta"])
+        res["counts"][name] = counts
+        res["deltas"][name] = deltas
+        log(f"EM kernel on {name}'s {len(af)} frequencies at g = {list(gauss)}: iterations "
+            f"{counts}, equal to the plain version's; the last delta-ll of each fit "
+            f"{[None if d is None else float(f'{d:.3g}') for d in deltas]} (max_iter "
+            f"{em_args[0]}, max_delta {em_args[3]})")
+    gmm.EM_LAUNCHES = before  # the checks' launches are not a main path's
+    return res
+
+
+def check_em() -> dict:
+    """Phase 2, kernel A: the golden frequency sets at g = 1..9, N = 0
+    and N = 1, g = 17, g = 1600 (its components past 48 KB of shared
+    memory; 300 points, three iterations at most), and two runs giving
+    the same bits."""
+    import torch
+
+    from ploidyfrost_tpu_torch.model import gmm
+
+    sets = {name: read_frequencies(os.path.join(d, "gold_allele_frequency.txt"))
+            for name, d in (("single_diploid", GOLD), ("multi_colored", GOLD_COLORED),
+                            ("indel_dense", GOLD_INDEL))}
+    res = check_em_fits(sets)
+    edge = check_em_fits({"N=0": np.zeros(0), "N=1": np.array([0.37])}, gauss=(1, 2, 3))
+    big = check_em_fits({"indel_dense": sets["indel_dense"]}, gauss=(17,))
+    wide = check_em_fits({"indel_dense[:300]": sets["indel_dense"][:300]}, gauss=(1600,),
+                         em_args=(3, *EM_ARGS[1:]))
+    for r in (edge, big, wide):
+        res["fits"] += r["fits"]
+        res["worst_rel"] = max(res["worst_rel"], r["worst_rel"])
+        res["worst_abs"] = max(res["worst_abs"], r["worst_abs"])
+    before = gmm.EM_LAUNCHES
+    af = torch.from_numpy(sets["indel_dense"]).cuda()
+    runs = [gmm._em_iterate(af, *_em_init(5), *EM_ARGS) for _ in range(2)]
+    gmm.EM_LAUNCHES = before
+    same = all(x.numpy().tobytes() == y.numpy().tobytes()
+               for x, y in zip(runs[0][:3], runs[1][:3])) and runs[0][3] == runs[1][3]
+    if not same:
+        raise AssertionError("two runs of the EM kernel gave different bits")
+    log(f"phase 2: EM kernel equal to its plain version on the card on {res['fits']} fits (the "
+        f"three golden frequency sets at g = 1..9, N = 0 and N = 1 at g = 1..3, g = 17, "
+        f"g = 1600 past 48 KB of shared memory): "
+        f"identical iteration counts {res['counts']}, largest relative difference "
+        f"{res['worst_rel']:.3g} (tolerance {EM_RTOL:g}); two runs bit-identical")
+    return res
+
+
+def em_attributes(n: int, g: int) -> dict:
+    """Kernel A compiled: registers, local bytes, shared bytes, blocks a
+    multiprocessor, threads, and the launch's blocks at n points, g."""
+    import ctypes as ct
+
+    from ploidyfrost_tpu_torch.model import gmm
+
+    out = (ct.c_int * 6)()
+    gmm._rc(gmm._load()["pf_gmm_em_attrs"](n, g, out), "attrs")
+    keys = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm", "threads", "blocks")
+    return dict(zip(keys, out))
+
+
+def nw_attributes(tier: int) -> dict:
+    """Kernel B compiled at `tier`: registers, local bytes, shared bytes a
+    block, warps (pairs) a block, blocks a multiprocessor."""
+    import ctypes as ct
+
+    from ploidyfrost_tpu_torch.kmer.extract import build
+
+    fn = ct.CDLL(build("nw_wavefront")).pf_nw_wavefront_attrs
+    fn.argtypes = [ct.c_int, ct.c_void_p]
+    fn.restype = ct.c_int
+    out = (ct.c_int * 5)()
+    if fn(tier, out):
+        raise RuntimeError(f"nw_wavefront attributes failed at tier {tier}")
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "warps", "blocks_per_sm"), out))
+
+
+def em_nw_attributes():
+    """Phase 1: kernel A at bench5m's order of size and g = 9 and 17,
+    kernel B at every tier."""
+    from ploidyfrost_tpu_torch.align.batch_nw import _MAX_TIER, _MIN_TIER
+
+    for n, g in ((20000, 9), (20000, 17), (300, 1600), (1, 1)):
+        a = em_attributes(n, g)
+        log(f"EM kernel at n={n}, g={g}: {a['registers']} registers and {a['local_bytes']} bytes "
+            f"of local memory a thread, {a['shared_bytes']} bytes of shared memory a block of "
+            f"{a['threads']} threads, {a['blocks_per_sm']} blocks resident a multiprocessor, "
+            f"{a['blocks']} blocks in the launch")
+    tier = _MIN_TIER
+    while tier <= _MAX_TIER:
+        a = nw_attributes(tier)
+        log(f"NW kernel at tier {tier}: {a['registers']} registers and {a['local_bytes']} bytes of "
+            f"local memory a thread, {a['shared_bytes']} bytes of shared memory a block of "
+            f"{a['warps']} warps (pairs), {a['blocks_per_sm']} blocks resident a multiprocessor")
+        tier *= 2
+
+
+def _nw_chunks(pairs: list):
+    """(tier, a_seqs, b_seqs) of each chunk nw_matrices_batched makes of
+    `pairs` (pairs above the largest tier left out)."""
+    from ploidyfrost_tpu_torch.align import batch_nw
+
+    by_tier = {}
+    for a, b in pairs:
+        t = batch_nw._tier_of(len(a), len(b))
+        if t <= batch_nw._MAX_TIER:
+            by_tier.setdefault(t, []).append((a, b))
+    for tier, ps in sorted(by_tier.items()):
+        ch = batch_nw._chunk_of(tier)
+        for off in range(0, len(ps), ch):
+            part = ps[off : off + ch]
+            yield tier, [a for a, _ in part], [b for _, b in part]
+
+
+def _nw_tensors(a_seqs, b_seqs, tier):
+    import torch
+
+    from ploidyfrost_tpu_torch.align import batch_nw
+
+    return (torch.from_numpy(batch_nw._encode(a_seqs, tier)).cuda(),
+            torch.from_numpy(batch_nw._encode(b_seqs, tier)).cuda(),
+            torch.tensor([[len(s)] for s in a_seqs], dtype=torch.int32, device="cuda"))
+
+
+def nw_buffers_same(pairs: list, where: str) -> dict:
+    """Kernel B against the plain `_wavefront` on the card, chunk by
+    chunk as nw_matrices_batched makes them: every pair's de-skewed
+    window must be equal (the native kernel's matrices, bit for bit);
+    whether the whole buffers agree is reported. Returns {chunks,
+    whole_equal, cells, max_abs_err (the largest difference of a flag
+    in the windows, kernel against the plain version and the native
+    kernel), whole_max_abs_err (the same over every flag of the whole
+    buffers, kernel against the plain version)}."""
+    import torch
+
+    from ploidyfrost_tpu_torch.align import batch_nw
+    from ploidyfrost_tpu_torch.align.nw import nw_matrices_native
+
+    before = batch_nw.NW_LAUNCHES
+    res = {"chunks": 0, "whole_equal": True, "cells": 0, "max_abs_err": 0,
+           "whole_max_abs_err": 0}
+    for tier, a_seqs, b_seqs in _nw_chunks(pairs):
+        a, b, a_len = _nw_tensors(a_seqs, b_seqs, tier)
+        got = batch_nw.nw_wavefront(a, b, a_len, 2, -1, -3)
+        want = batch_nw._wavefront(a, b, a_len, 2, -1, -3)
+        torch.cuda.synchronize()
+        res["chunks"] += 1
+        res["whole_equal"] &= bool(torch.equal(got, want))
+        got, want = got.cpu().numpy(), want.cpu().numpy()
+        # flags are 0 or 1: any differing bit is a difference of 1
+        res["whole_max_abs_err"] = max(res["whole_max_abs_err"], int((got != want).any()))
+        native = nw_matrices_native(list(zip(a_seqs, b_seqs)), 2.0, -1.0, -3.0)
+        for lane, (A, B) in enumerate(zip(a_seqs, b_seqs)):
+            ii = np.arange(len(A) + 1)[:, None]
+            dg = ii + np.arange(len(B) + 1)[None, :]
+            bits_k = np.unpackbits(got[lane], axis=-1, bitorder="little").astype(np.int16)
+            bits_p = np.unpackbits(want[lane], axis=-1, bitorder="little").astype(np.int16)
+            for f in range(3):
+                k, p = bits_k[f][dg, ii], bits_p[f][dg, ii]
+                err = max(int(np.abs(k - p).max()),
+                          int(np.abs(k - native[lane][f].astype(np.int16)).max()))
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+                if err:
+                    raise AssertionError(f"NW kernel window of pair {lane} (tier {tier}, flag "
+                                         f"{f}) differs at {where}")
+            res["cells"] += (len(A) + 1) * (len(B) + 1)
+    batch_nw.NW_LAUNCHES = before  # the checks' launches are not a main path's
+    return res
+
+
+def check_nw_kernel() -> dict:
+    """Phase 2, kernel B: the synthetic pairs of every tier (dashes in A),
+    with an empty A and full-length rows, against `_wavefront` and the
+    native kernel."""
+    import random
+
+    pairs = _synthetic_nw_pairs()
+    rng = random.Random(11)
+    tier = 16
+    from ploidyfrost_tpu_torch.align.batch_nw import _MAX_TIER
+
+    while tier <= _MAX_TIER:
+        pairs += [("", "".join(rng.choice("ACGT") for _ in range(tier))),
+                  ("A" * tier, "C" * tier),
+                  ("".join(rng.choice("ACGT-") for _ in range(tier)),
+                   "".join(rng.choice("ACGT") for _ in range(tier - 1)))]
+        tier *= 2
+    res = nw_buffers_same(pairs, "the synthetic pairs")
+    log(f"phase 2: NW kernel on the card equal to its plain version and the native kernel on "
+        f"every de-skewed window of {len(pairs)} synthetic pairs ({res['chunks']} chunks, tiers "
+        f"16..2048, {res['cells']} cells); whole buffers "
+        f"{'equal' if res['whole_equal'] else 'NOT equal outside the windows'}")
+    return res
+
+
+def time_em(af_np: np.ndarray, name: str, reps: int = 30) -> dict:
+    """Kernel A at `af` (a real run's frequencies) for g = 1..9, per fit
+    with CUDA events and L2 scrubbed: the bare launch and the plain version
+    in turns (plain, kernel, kernel, plain), the bound from this run's
+    passes, and a latency floor from parts measured apart from the fit
+    kernel: the launch (the barrier counter's memset and a cooperative
+    launch of the fit's blocks that do nothing), a grid barrier (the slope
+    of launches of 0 and 1000 barriers), and a pass floor, the slope over
+    rounds of one thread's chain for one point (its L2 read, g densities,
+    the log, g responsibilities) plus that of one block's reduction of its
+    sums and block 0's sum of the fit's rows (pf_gmm_floor_probe). The
+    floor is the launch + (count + 1) x (pass floor + two barriers). A
+    pass inside the fit kernel (a fit with max_iter = 0, less the launch
+    and two barriers) is reported beside the pass floor. Everything in
+    ms."""
+    import torch
+
+    from ploidyfrost_tpu_torch.kmer.extract_bench import (
+        HBM_BYTES_PER_S, event_times, scrub_buffer, spread)
+    from ploidyfrost_tpu_torch.model import gmm
+
+    af = torch.from_numpy(np.ascontiguousarray(af_np, dtype=np.float64)).cuda()
+    n = af.numel()
+    scrub = scrub_buffer()
+    before = gmm.EM_LAUNCHES
+    fits = []
+    fns = gmm._load()
+    stream = torch.cuda.current_stream().cuda_stream
+    bar = torch.zeros(1, dtype=torch.int64, device="cuda")
+    rows = {g: em_attributes(n, g)["blocks"] for g in range(1, 10)}
+    blocks = rows[9]
+    scratch = torch.zeros(max(rows.values()) * 19, dtype=torch.float64, device="cuda")
+    probe_out = torch.zeros(19, dtype=torch.float64, device="cuda")
+
+    def probe(rounds):
+        return lambda: gmm._rc(fns["pf_gmm_barrier_probe"](blocks, rounds, bar.data_ptr(),
+                                                           stream), "barrier probe")
+
+    def slope(make, rounds, r=10):
+        """ms a round of make(rounds): launches of 0 and `rounds` rounds."""
+        t0 = spread(event_times(make(0), r, scrub))[0]
+        return (spread(event_times(make(rounds), r, scrub))[0] - t0) / rounds
+
+    def floor_part(mode, g, rows):
+        return lambda rounds: lambda: gmm._rc(fns["pf_gmm_floor_probe"](
+            mode, g, rows, rounds, scratch.data_ptr(), probe_out.data_ptr(), stream),
+            "floor probe")
+
+    rounds = 1000
+    launch_ms = spread(event_times(probe(0), reps, scrub))[0]
+    barrier_ms = slope(probe, rounds)
+    for g in range(1, 10):
+        init = _em_init(g)
+        out = torch.empty(2 * g + 2, dtype=torch.float64, device="cuda")
+        kernel = lambda: gmm.launch_em(af, *init, *EM_ARGS, out)  # noqa: E731
+        plain = lambda: gmm.em_iterate_plain(af, *init, *EM_ARGS)  # noqa: E731
+        one_pass = lambda: gmm.launch_em(af, *init, 0, *EM_ARGS[1:], out)  # noqa: E731
+        times = {"ms": [], "plain_ms": []}
+        for key, f, r in (("plain_ms", plain, 2), ("ms", kernel, reps // 2),
+                          ("ms", kernel, reps // 2), ("plain_ms", plain, 2)):
+            times[key] += event_times(f, r, scrub)
+        count = int(out[2 * g + 1])
+        pass_ms = spread(event_times(one_pass, reps, scrub))[0]
+        chain_ms = slope(floor_part(0, g, rows[g]), rounds)
+        reduce_ms = slope(floor_part(1, g, rows[g]), rounds)
+        passes = count + 1
+        t_bytes = passes * n * 8 / HBM_BYTES_PER_S * 1e3
+        # a floor on a pass's fp64 work a point: per component the
+        # difference, square, quotient, exp, two products, the weight, two
+        # row sums, the responsibility, its sum, two products and the var
+        # sum (13); the log and its sum (2)
+        ops = passes * n * (13 * g + 2)
+        t_ops = ops / FP64_OPS_PER_S * 1e3
+        pass_floor = chain_ms + reduce_ms
+        fits.append({"g": g, "count": count, "ms": spread(times["ms"]),
+                     "plain_ms": spread(times["plain_ms"]), "pass_ms": pass_ms,
+                     "pass_body_ms": max(pass_ms - launch_ms - 2 * barrier_ms, 0.0),
+                     "chain_ms": chain_ms, "reduce_ms": reduce_ms, "pass_floor_ms": pass_floor,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "floor_ms": launch_ms + passes * (pass_floor + 2 * barrier_ms)})
+    gmm.EM_LAUNCHES = before  # timing launches are not the main path's
+    total = {key: sum(f[key][0] if isinstance(f[key], tuple) else f[key] for f in fits)
+             for key in ("ms", "plain_ms", "bound_ms", "floor_ms")}
+    res = {"n": n, "fits": fits, "launch_ms": launch_ms, "barrier_ms": barrier_ms,
+           "blocks": blocks, **total,
+           "bound_by": "bytes" if all(f["bound_by"] == "bytes" for f in fits) else "operations"}
+    per = "; ".join(f"g={f['g']} {f['count']} it. {f['ms'][0]:.4f} [{f['ms'][1]:.4f}, "
+                    f"{f['ms'][2]:.4f}] ms, plain {f['plain_ms'][0]:.3f} ms, a pass in the "
+                    f"kernel {f['pass_body_ms'] * 1e3:.2f} us against a pass floor "
+                    f"{f['pass_floor_ms'] * 1e3:.2f} us (chain {f['chain_ms'] * 1e3:.2f}, "
+                    f"reductions {f['reduce_ms'] * 1e3:.2f}), bound {f['bound_ms'] * 1e3:.3f} us, "
+                    f"floor {f['floor_ms']:.4f} ms" for f in fits)
+    log(f"EM kernel at {name}'s {n} frequencies ({blocks} blocks at g = 9), per fit (median "
+        f"[min, max]): {per}")
+    log(f"EM kernel at {name}, the model stage's nine fits: kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.3f} ms, bound {res['bound_ms'] * 1e3:.3f} us ({res['bound_by']}; "
+        f"{n * 8} bytes a pass at 3.35 TB/s against 13 g + 2 fp64 operations a point at "
+        f"{FP64_OPS_PER_S / 1e12:g} TFLOP/s), {100 * res['bound_ms'] / res['ms']:.2f}% of bound; "
+        f"latency floor {res['floor_ms']:.4f} ms (a launch, the memset and an empty "
+        f"cooperative grid, {launch_ms:.4f} ms; a grid barrier of {blocks} blocks "
+        f"{barrier_ms * 1e3:.2f} us; + (count + 1) x (the pass floor + two barriers), each "
+        f"part measured apart from the fit kernel), "
+        f"{100 * res['floor_ms'] / res['ms']:.1f}% of the kernel's time")
+    return res
+
+
+def time_nw(pairs: list, name: str, reps: int = 20) -> dict:
+    """Kernel B at `pairs`, chunk by chunk as nw_matrices_batched makes
+    them: the bare launch (CUDA events, L2 scrubbed) and the plain
+    `_wavefront` on the card in turns (plain, kernel, kernel, plain), per
+    tier; the bound from each chunk's bytes (codes and lengths in, flags
+    out at 3.35 TB/s) against its integer operations (about 20 a cell at
+    the card's 32-bit rate). Everything in ms."""
+    from ploidyfrost_tpu_torch.align import batch_nw
+    from ploidyfrost_tpu_torch.kmer.extract_bench import (
+        ALU_OPS_PER_S, HBM_BYTES_PER_S, event_times, scrub_buffer, spread)
+
+    import torch
+
+    scrub = scrub_buffer()
+    before = batch_nw.NW_LAUNCHES
+    tiers = {}
+    for tier, a_seqs, b_seqs in _nw_chunks(pairs):
+        a, b, a_len = _nw_tensors(a_seqs, b_seqs, tier)
+        CH = len(a_seqs)
+        out = torch.empty((CH, 3, 2 * tier + 1, (tier + 9) // 8), dtype=torch.uint8, device="cuda")
+        kernel = lambda: batch_nw.launch_wavefront(a, b, a_len, 2, -1, -3, out)  # noqa: E731
+        plain = lambda: batch_nw._wavefront(a, b, a_len, 2, -1, -3)  # noqa: E731
+        times = {"ms": [], "plain_ms": []}
+        for key, f, r in (("plain_ms", plain, 1), ("ms", kernel, reps // 2),
+                          ("ms", kernel, reps // 2), ("plain_ms", plain, 1)):
+            times[key] += event_times(f, r, scrub)
+        nbytes = 2 * CH * tier + 4 * CH + out.numel()
+        ops = 20 * CH * (2 * tier + 1) * (tier + 1)
+        t = tiers.setdefault(tier, {"chunks": 0, "pairs": 0, "ms": 0.0, "min_ms": 0.0,
+                                    "max_ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0})
+        k = spread(times["ms"])
+        t["chunks"] += 1
+        t["pairs"] += CH
+        t["ms"] += k[0]
+        t["min_ms"] += k[1]
+        t["max_ms"] += k[2]
+        t["plain_ms"] += spread(times["plain_ms"])[0]
+        t["bytes"] += nbytes
+        t["ops"] += ops
+    batch_nw.NW_LAUNCHES = before  # timing launches are not the main path's
+    for t in tiers.values():
+        t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = t["ops"] / ALU_OPS_PER_S * 1e3
+        t["bound_ms"] = max(t_bytes, t_ops)
+        t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    res = {key: sum(t[key] for t in tiers.values())
+           for key in ("chunks", "pairs", "ms", "plain_ms", "bound_ms", "bytes", "ops")}
+    res["bound_by"] = ("bytes" if res["bytes"] / HBM_BYTES_PER_S >= res["ops"] / ALU_OPS_PER_S
+                       else "operations")
+    res["tiers"] = tiers
+    per = "; ".join(f"tier {tier}: {t['pairs']} pairs in {t['chunks']} chunk(s), kernel "
+                    f"{t['ms']:.4f} [{t['min_ms']:.4f}, {t['max_ms']:.4f}] ms, plain "
+                    f"{t['plain_ms']:.2f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
+                    for tier, t in sorted(tiers.items()))
+    log(f"NW kernel at {name}'s {res['pairs']} pairs, a launch a chunk (median [min, max], "
+        f"summed over a tier's chunks): {per}")
+    log(f"NW kernel at {name}, all {res['chunks']} chunks: kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.2f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}: "
+        f"{res['bytes']} bytes, {res['ops']} integer operations), "
+        f"{100 * res['bound_ms'] / res['ms']:.1f}% of bound")
+    return res
+
+
+def profile_em(fre: str) -> dict:
+    """bench5m's model stage (GmmModel.em_iterate at g = 1..9) once
+    unprofiled, then under the profiler: the EM kernels and the copies the
+    card ran, and each fit's iteration count."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from ploidyfrost_tpu_torch.model import gmm
+    from ploidyfrost_tpu_torch.util.profiling import profiled
+
+    model = gmm.GmmModel("cuda")
+    model.read_fre_file(fre, 0.0)
+    counts = []
+    for g in range(1, 10):  # warm: the library loads, the frequencies reach the card
+        model.resize(g)
+        args = (model._af(), *model._params(), *EM_ARGS)
+        counts.append(gmm._em_iterate(*args)[3])
+    torch.cuda.synchronize()
+    launches = gmm.EM_LAUNCHES
+    with profiled(_activities("cuda")) as prof:
+        for g in range(1, 10):
+            model.resize(g)
+            model.em_iterate()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {"counts": counts, "launches": gmm.EM_LAUNCHES - launches,
+            "em_kernels": sum("em_kernel" in e.name for e in events),
+            "copies": sum(e.name.startswith("Memcpy") for e in events),
+            "memsets": sum(e.name.startswith("Memset") for e in events),
+            "others": sorted({e.name for e in events if "em_kernel" not in e.name
+                              and not e.name.startswith(("Memcpy", "Memset"))}),
+            "em_us": sum(e.time_range.elapsed_us() for e in events if "em_kernel" in e.name)}
+
+
 def native_libraries() -> dict:
     """Which of the port's native host libraries loaded."""
     from ploidyfrost_tpu_torch import native
@@ -989,6 +1489,7 @@ def multi3x5m(device: str, work: str, genome_bp: int = 5_000_000, profile: bool 
     from ploidyfrost_tpu_torch.bubble import batched
     from ploidyfrost_tpu_torch.cli import Options
     from ploidyfrost_tpu_torch.kmer import extract
+    from ploidyfrost_tpu_torch.model import gmm
     from ploidyfrost_tpu_torch.pipeline import run_multisample_pipeline_cli
 
     os.makedirs(work, exist_ok=True)
@@ -1000,8 +1501,7 @@ def multi3x5m(device: str, work: str, genome_bp: int = 5_000_000, profile: bool 
     opt.outprefix = "multi"
     opt.inputs = reads
     torch.cuda.reset_peak_memory_stats()
-    extract.LAUNCHES = 0
-    batched.SEARCH_LAUNCHES = 0
+    zero_counts()
     prof = cProfile.Profile() if profile else None
     t0 = time.time()
     rc = prof.runcall(run_multisample_pipeline_cli, opt, device) if prof else \
@@ -1011,11 +1511,11 @@ def multi3x5m(device: str, work: str, genome_bp: int = 5_000_000, profile: bool 
         pstats.Stats(prof).sort_stats("cumulative").print_stats(40)
     launches = extract.LAUNCHES
     search_launches = batched.SEARCH_LAUNCHES
+    em_launches = gmm.EM_LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     if rc != 0:
         raise RuntimeError(f"pipeline-multi returned {rc}")
-    if launches == 0 or search_launches == 0:
-        raise AssertionError(f"multi3x5m launches: K1 {launches}, search {search_launches}")
+    check_counts("multi3x5m")
     ploidy = _model_ploidy("multi")
     if ploidy != 2:
         raise AssertionError(f"multi3x5m ploidy {ploidy} != 2")
@@ -1028,9 +1528,10 @@ def multi3x5m(device: str, work: str, genome_bp: int = 5_000_000, profile: bool 
     log(f"multi3x5m: pipeline-multi wall {wall:.3f} s, cutoffs {opt.coverage_vec}, "
         f"ploidy {ploidy}, unitigs {info['nbUnitig']}, k-mers {info['nbKmer']}, "
         f"colors {info['NbColors']}, bubbles {bubbles}, K1 launches {launches}, "
-        f"search launches {search_launches}, peak device memory {peak / 2**30:.3f} GiB")
-    return {"launches": launches, "search_launches": search_launches, "wall": wall,
-            "gfa": os.path.join(work, "multi.gfa")}
+        f"search launches {search_launches}, EM launches {em_launches}, peak device memory "
+        f"{peak / 2**30:.3f} GiB")
+    return {"launches": launches, "search_launches": search_launches, "em_launches": em_launches,
+            "wall": wall, "gfa": os.path.join(work, "multi.gfa")}
 
 
 def torch_programs(device: str, work: str, reads: str, table: str, lower: int):
@@ -1299,11 +1800,14 @@ def _same_matrices(got, want, what: str):
                 raise AssertionError(f"NW {name} matrix of pair {i} differs from {what}")
 
 
-def nw_wavefront(device: str, work: str, bench_pairs: list):
-    """Phase 9: the indel_dense golden on the card, the torch wavefront
-    against the native kernel and the numpy wavefront on its real pairs,
-    on bench5m's (`bench_pairs`) and on every tier, the three engines timed, and a traced `run`
-    with the native NW library withheld."""
+def nw_wavefront(device: str, work: str, bench_pairs: list) -> dict:
+    """Phase 9: the indel_dense golden on the card, the device wavefront
+    (the NW kernel) against the native kernel and the numpy wavefront on
+    its real pairs, on bench5m's (`bench_pairs`) and on every tier, the
+    kernel against its plain version chunk by chunk and timed, the three
+    engines timed, and a traced `run` with the native NW library
+    withheld. Returns {launches (that run's NW kernel launches), chunks,
+    whole_equal, timing}."""
     import collections
 
     from ploidyfrost_tpu_torch.align import batch_nw
@@ -1317,12 +1821,11 @@ def nw_wavefront(device: str, work: str, bench_pairs: list):
     make_indel_reads("reads.fa")
     log(f"indel_dense reads generated in {time.time() - t0:.1f} s")
     calls0 = dict(batch_nw.ENGINE_CALLS)
-    extract.LAUNCHES = 0
+    zero_counts()
     with record_nw_pairs() as rec:
         opt, ploidy, wall = run_pipeline("reads.fa", "gold", device)
     launches = extract.LAUNCHES
-    if device == "cuda" and launches == 0:
-        raise AssertionError("the indel_dense pipeline never launched K1")
+    check_counts("the indel_dense pipeline")
     if (opt.coverage_lower, opt.coverage_upper) != (10, 83):
         raise AssertionError(f"indel_dense cutoffs {(opt.coverage_lower, opt.coverage_upper)}")
     model = check_golden_outputs(GOLD_INDEL, ploidy, want_ploidy=4)
@@ -1361,14 +1864,20 @@ def nw_wavefront(device: str, work: str, bench_pairs: list):
                    "the numpy wavefront's (synthetic)")
     steps = sum(2 * t + 1 for t in hist)
     nat, dev = spread(times["native"]), spread(times["device"])
-    log(f"phase 9: torch wavefront on the card bit-exact against the native kernel and the numpy "
+    log(f"phase 9: NW kernel (the device engine) bit-exact against the native kernel and the numpy "
         f"wavefront on {len(real)} real pairs ({len(real) - len(bench_pairs)} of indel_dense, "
         f"{len(bench_pairs)} of bench5m; tiers {dict(sorted(hist.items()))}) and "
         f"{len(synth)} synthetic pairs (tiers 16..2048, dashes in A, one pair above the largest "
         f"tier on the host; {synth_s:.3f} s); engines on the real pairs, copies and de-skew "
         f"included, median [min, max] of 3: native C {nat[0]:.4f} s [{nat[1]:.4f}, {nat[2]:.4f}], "
-        f"torch on the card {dev[0]:.4f} s [{dev[1]:.4f}, {dev[2]:.4f}] over {steps} wavefront "
-        f"steps, numpy {times['numpy'][0]:.3f} s (one run)")
+        f"the NW kernel on the card {dev[0]:.4f} s [{dev[1]:.4f}, {dev[2]:.4f}] over {steps} "
+        f"wavefront steps, numpy {times['numpy'][0]:.3f} s (one run)")
+    same = nw_buffers_same(real, "phase 9's real pairs")
+    log(f"phase 9: NW kernel equal to its plain version on the card and to the native kernel on "
+        f"every de-skewed window of the {len(real)} real pairs ({same['chunks']} chunks, "
+        f"{same['cells']} cells); whole buffers "
+        f"{'equal' if same['whole_equal'] else 'NOT equal outside the windows'}")
+    timing = time_nw(real, "phase 9")
 
     # one chunk of the commonest tier under the profiler: launches a step
     from ploidyfrost_tpu_torch.util.profiling import device_busy, profiled
@@ -1385,23 +1894,28 @@ def nw_wavefront(device: str, work: str, bench_pairs: list):
         wall = time.time() - t0
     busy = device_busy(prof, wall)
     log(f"phase 9: one tier-{tier} chunk of {len(lanes)} lanes under the profiler: "
-        f"{busy['kernels']} kernels over {2 * tier + 1} steps "
-        f"({busy['kernels'] / (2 * tier + 1):.1f} a step), kernel time {busy['kernel_s']:.4f} s, "
-        f"copies {busy['copy_s']:.4f} s, wall {wall:.4f} s, the card busy "
-        f"{100 * busy['busy_share']:.1f}% of it")
+        f"{busy['kernels']} kernel(s) for its {2 * tier + 1} wavefront steps, kernel time "
+        f"{busy['kernel_s']:.6f} s, copies {busy['copy_s']:.6f} s, wall {wall:.4f} s, the card "
+        f"busy {100 * busy['busy_share']:.1f}% of it")
 
     n = in_fresh_process("traced_run_without_native_nw", device, "gold", "nonative",
                          ["-l", "10", "-u", "83"])
     check_golden_tables(GOLD_INDEL, "nonative")
     delta = n.pop("engines")
+    launches = n.pop("nw_launches")
     if delta["device"] < 1 or delta["numpy"] or delta["native"]:
         raise AssertionError(f"run without the native NW library used engines {delta}")
+    if device == "cuda" and launches < 1:
+        raise AssertionError("the run without the native NW library never launched the NW kernel")
     if device == "cuda" and min(n.values()) < 1:
         raise AssertionError(f"the traces of that run hold CUDA kernels {n}")
     log(f"phase 9: `run` on the indel_dense graph with the native NW library withheld, "
         f"--device={device}, under PLOIDYFROST_TRACE: 12 tables byte-identical, engines {delta}, "
-        f"findSuperBubble.json holds {n['findSuperBubble']} CUDA kernels, ploidyEstimation.json "
-        f"{n['ploidyEstimation']} (the wavefront's)")
+        f"NW kernel launches {launches}, findSuperBubble.json holds {n['findSuperBubble']} CUDA "
+        f"kernels, ploidyEstimation.json {n['ploidyEstimation']} (the wavefront's)")
+    return {"launches": launches, "chunks": same["chunks"], "whole_equal": same["whole_equal"],
+            "max_abs_err": same["max_abs_err"], "whole_max_abs_err": same["whole_max_abs_err"],
+            "timing": timing}
 
 
 def _trace_kernels(path: str) -> int:
@@ -1430,14 +1944,17 @@ def _traced_run(device: str, src_prefix: str, out: str, cutoffs: list[str]) -> d
 
 def traced_run_without_native_nw(device: str, src_prefix: str, out: str,
                                  cutoffs: list[str]) -> dict:
-    """`_traced_run` with the native NW library withheld, and the NW
-    engines it called (under "engines")."""
+    """`_traced_run` with the native NW library withheld, the NW engines
+    it called (under "engines") and its NW kernel launches (under
+    "nw_launches")."""
     from ploidyfrost_tpu_torch.align import batch_nw
 
     calls0 = dict(batch_nw.ENGINE_CALLS)
+    batch_nw.NW_LAUNCHES = 0
     with without_native_nw():
         n = _traced_run(device, src_prefix, out, cutoffs)
     n["engines"] = {k: batch_nw.ENGINE_CALLS[k] - calls0[k] for k in calls0}
+    n["nw_launches"] = batch_nw.NW_LAUNCHES
     return n
 
 
@@ -1492,10 +2009,12 @@ def profile_find_superbubbles(gfa: str, device: str) -> dict:
             "busy": device_busy(prof, wall), "names": names, "search_us": search_us}
 
 
-def tracing(device: str, work: str, golden_dir: str, bench_dir: str):
-    """Phase 10: the phase traces of the single_diploid `run`, and the
-    card's busy share of bench5m's superbubble search, each in a fresh
-    process."""
+def tracing(device: str, work: str, golden_dir: str, bench_dir: str) -> dict:
+    """Phase 10: the phase traces of the single_diploid `run`, the card's
+    busy share of bench5m's superbubble search, and bench5m's nine GMM
+    fits under the profiler (one EM kernel a fit, copies that do not grow
+    with the iterations), each in a fresh process. Returns the fits'
+    profile."""
     os.makedirs(work, exist_ok=True)
     os.chdir(work)
     n = in_fresh_process("_traced_run", device, os.path.join(golden_dir, "gold"), "traced",
@@ -1527,6 +2046,17 @@ def tracing(device: str, work: str, golden_dir: str, bench_dir: str):
         f"{100 * (busy['kernel_s'] + busy['copy_s']) / min(plain):.1f}% of the faster unprofiled "
         "run's wall")
 
+    em = in_fresh_process("profile_em", os.path.join(bench_dir, "PloidyFrost_output",
+                                                     "bench5m_allele_frequency.txt"))
+    if device == "cuda" and (em["em_kernels"] != 9 or em["launches"] != 9 or em["others"]
+                             or em["copies"] > 2 * 9):
+        raise AssertionError(f"bench5m's nine fits under the profiler: {em}")
+    log(f"phase 10: bench5m's nine GMM fits (iterations {em['counts']}, "
+        f"{sum(em['counts'])} in all) under the profiler: {em['em_kernels']} EM kernels "
+        f"({em['em_us'] / 1e3:.4f} ms), no other kernel, {em['copies']} copies and "
+        f"{em['memsets']} memsets: one launch and one readback a fit, none an iteration")
+    return em
+
 
 def _file_set(d: str) -> set[str]:
     return {os.path.relpath(os.path.join(r, f), d) for r, _, fs in os.walk(d) for f in fs}
@@ -1546,6 +2076,7 @@ def multi_card(work: str, bench: str, reads: str) -> dict:
     from ploidyfrost_tpu_torch.io.fastx import read_batches
     from ploidyfrost_tpu_torch.kmer import extract
     from ploidyfrost_tpu_torch.kmer.count import KmerCounter
+    from ploidyfrost_tpu_torch.model import gmm
     from ploidyfrost_tpu_torch.model.gmm import GmmModel
     from ploidyfrost_tpu_torch.parallel.mesh import RankPlan, init_group
     from ploidyfrost_tpu_torch.parallel.sharded import ShardedKmerCounter
@@ -1600,6 +2131,7 @@ def multi_card(work: str, bench: str, reads: str) -> dict:
 
         fre = os.path.join(bench, "PloidyFrost_output", "bench5m_allele_frequency.txt")
         em_s = {"single": 0.0, "sharded": 0.0}
+        em_launches = {"single": 0, "sharded": 0}
         worst = 0.0
         for gauss in range(1, 10):
             fits = {}
@@ -1608,16 +2140,23 @@ def multi_card(work: str, bench: str, reads: str) -> dict:
                 model.read_fre_file(fre, 0.0)
                 model.resize(gauss)
                 t0 = time.time()
+                before = gmm.EM_LAUNCHES
                 model.em_iterate()
                 em_s[side] += time.time() - t0
+                em_launches[side] += gmm.EM_LAUNCHES - before
                 fits[side] = np.concatenate([model.vars, model.weights, [model.log_likelihood]])
             rel = np.abs(fits["sharded"] - fits["single"]) / np.abs(fits["single"])
             worst = max(worst, float(rel.max()))
         if worst > 1e-12:
             raise AssertionError(f"sharded EM differs from the single-device EM by {worst:.3g}")
+        if min(em_launches.values()) < 9:
+            raise AssertionError(f"EM kernel launches single and sharded: {em_launches}")
+        res["em_launches"] = em_launches["sharded"]
         log(f"phase 11a: GMM fits on bench5m's {len(model.allele_fre)} frequencies, gauss 1..9, "
             f"through the group: largest relative difference {worst:.3g} (tolerance 1e-12); "
-            f"em_iterate seconds single {em_s['single']:.3f}, sharded {em_s['sharded']:.3f}")
+            f"em_iterate seconds single {em_s['single']:.3f}, sharded {em_s['sharded']:.3f}; EM "
+            f"kernel launches single {em_launches['single']} (one a fit), sharded "
+            f"{em_launches['sharded']} (a pass and an update an iteration)")
 
         g = CDBGraph.from_gfa(os.path.join(bench, "bench5m.gfa"))
         seeds = canonical_seeds(g)
@@ -1682,6 +2221,28 @@ def multi_card(work: str, bench: str, reads: str) -> dict:
     return res
 
 
+def zero_counts():
+    """Every kernel's launch count to 0, just before a main path runs."""
+    from ploidyfrost_tpu_torch.align import batch_nw
+    from ploidyfrost_tpu_torch.bubble import batched
+    from ploidyfrost_tpu_torch.kmer import extract
+    from ploidyfrost_tpu_torch.model import gmm
+
+    extract.LAUNCHES = batched.SEARCH_LAUNCHES = gmm.EM_LAUNCHES = batch_nw.NW_LAUNCHES = 0
+
+
+def check_counts(what: str, fits: int = 9):
+    """A pipeline path launched K1 and the search kernel, and the EM
+    kernel once a fit (`fits`: gauss 1..9)."""
+    from ploidyfrost_tpu_torch.bubble import batched
+    from ploidyfrost_tpu_torch.kmer import extract
+    from ploidyfrost_tpu_torch.model import gmm
+
+    if extract.LAUNCHES == 0 or batched.SEARCH_LAUNCHES == 0 or gmm.EM_LAUNCHES < fits:
+        raise AssertionError(f"{what} launches: K1 {extract.LAUNCHES}, search "
+                             f"{batched.SEARCH_LAUNCHES}, EM {gmm.EM_LAUNCHES} (want >= {fits})")
+
+
 def card_name_and_power() -> str:
     """The first card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -1711,6 +2272,7 @@ def main() -> int:
         return 1
     from ploidyfrost_tpu_torch.bubble import batched
     from ploidyfrost_tpu_torch.kmer import extract
+    from ploidyfrost_tpu_torch.model import gmm
 
     if "jax" in sys.modules or "ploidyfrost_tpu" in sys.modules:
         raise AssertionError("the port pulled in jax or ploidyfrost_tpu")
@@ -1729,20 +2291,20 @@ def main() -> int:
         baseline_cu, baseline_search_cu)
     log(f"phase 1: kernels built in {build_s:.2f} s")
     default_tile = search_attributes()
+    em_nw_attributes()
 
     err, n_cases = check_extract()
     log(f"phase 2: K1 bit-exact against its plain version on {n_cases} cases, "
         f"fused count equal to the plain count")
     search_cases, search_err = check_search()
+    em_check = check_em()
+    nw_check = check_nw_kernel()
 
-    extract.LAUNCHES = 0
-    batched.SEARCH_LAUNCHES = 0
+    zero_counts()
     golden("cuda", os.path.join(WORK, "golden"))
-    if extract.LAUNCHES == 0 or batched.SEARCH_LAUNCHES == 0:
-        raise AssertionError(f"golden pipeline launches: K1 {extract.LAUNCHES}, "
-                             f"search {batched.SEARCH_LAUNCHES}")
+    check_counts("the golden pipeline")
     log(f"phase 3: golden passed, K1 launches {extract.LAUNCHES}, "
-        f"search launches {batched.SEARCH_LAUNCHES}")
+        f"search launches {batched.SEARCH_LAUNCHES}, EM launches {gmm.EM_LAUNCHES}")
 
     libs = native_libraries()
     log("native host libraries: " + ", ".join(
@@ -1757,23 +2319,29 @@ def main() -> int:
     make_bench5m_reads("bench5m_reads.fa")
     log(f"bench5m reads generated in {time.time() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
-    extract.LAUNCHES = 0
-    batched.SEARCH_LAUNCHES = 0
+    zero_counts()
     with record_nw_pairs() as bench_nw:
         opt, ploidy, wall = run_pipeline("bench5m_reads.fa", "bench5m", "cuda")
     launches = extract.LAUNCHES
     search_launches = batched.SEARCH_LAUNCHES
+    em_launches = gmm.EM_LAUNCHES
     peak = torch.cuda.max_memory_allocated()
-    if launches == 0 or search_launches == 0:
-        raise AssertionError(f"bench5m pipeline launches: K1 {launches}, search {search_launches}")
+    check_counts("the bench5m pipeline")
     if ploidy != 2:
         raise AssertionError(f"bench5m ploidy {ploidy} != 2")
     for stage, sec in opt.stage_seconds.items():
         log(f"bench5m stage {stage}: {sec:.3f} s")
     log(f"bench5m: pipeline wall {wall:.3f} s, cutoffs ({opt.coverage_lower}, "
         f"{opt.coverage_upper}), ploidy {ploidy}, K1 launches {launches}, "
-        f"search launches {search_launches}, peak device memory {peak / 2**30:.3f} GiB, "
-        f"{sum(map(len, bench_nw.calls))} pairs handed to needleman_wunsch_batch")
+        f"search launches {search_launches}, EM launches {em_launches}, peak device memory "
+        f"{peak / 2**30:.3f} GiB, {sum(map(len, bench_nw.calls))} pairs handed to "
+        "needleman_wunsch_batch")
+    bench_fre = read_frequencies(os.path.join(bench, "PloidyFrost_output",
+                                              "bench5m_allele_frequency.txt"))
+    em_real = check_em_fits({"bench5m": bench_fre})
+    log(f"EM kernel on bench5m's frequencies: largest relative difference from the plain "
+        f"version {em_real['worst_rel']:.3g} (tolerance {EM_RTOL:g})")
+    tem = time_em(bench_fre, "bench5m")
     bench_gfa = os.path.join(bench, "bench5m.gfa")
     cases, err = check_search_real(bench_gfa, "bench5m")
     search_cases, search_err = search_cases + cases, max(search_err, err)
@@ -1804,16 +2372,18 @@ def main() -> int:
         raise AssertionError(f"a counter batch ran {kernels_seen}, not K1 alone")
     log("phase 4: bench5m passed")
 
-    extract.LAUNCHES = 0
-    batched.SEARCH_LAUNCHES = 0
+    zero_counts()
     golden_colored("cuda", os.path.join(WORK, "golden_colored"))
-    if extract.LAUNCHES == 0 or batched.SEARCH_LAUNCHES == 0:
-        raise AssertionError(f"the colored golden launches: K1 {extract.LAUNCHES}, "
-                             f"search {batched.SEARCH_LAUNCHES}")
+    check_counts("the colored golden")
     log(f"phase 5: colored golden passed, K1 launches {extract.LAUNCHES}, "
-        f"search launches {batched.SEARCH_LAUNCHES}")
+        f"search launches {batched.SEARCH_LAUNCHES}, EM launches {gmm.EM_LAUNCHES}")
 
     multi = multi3x5m("cuda", os.path.join(WORK, "multi3x5m"), profile=args.profile_multi)
+    multi_fre = read_frequencies(os.path.join(WORK, "multi3x5m", "PloidyFrost_output",
+                                              "multi_allele_frequency.txt"))
+    em_multi = check_em_fits({"multi3x5m": multi_fre})
+    log(f"EM kernel on multi3x5m's frequencies: largest relative difference from the plain "
+        f"version {em_multi['worst_rel']:.3g} (tolerance {EM_RTOL:g})")
     cases, err = check_search_real(multi["gfa"], "multi3x5m")
     search_cases, search_err = search_cases + cases, max(search_err, err)
     ts_multi = time_search(multi["gfa"], "multi3x5m", baseline_search_lib)
@@ -1832,11 +2402,12 @@ def main() -> int:
          "colored": (min(lo for lo, _ in COLORED_CUTOFFS), max(up for _, up in COLORED_CUTOFFS))})
     log("phase 8: post-processing passed")
 
-    nw_wavefront("cuda", os.path.join(WORK, "indel_dense"),
-                 [p for call in bench_nw.calls for p in call])
+    nw = nw_wavefront("cuda", os.path.join(WORK, "indel_dense"),
+                      [p for call in bench_nw.calls for p in call])
     log("phase 9: NW wavefront passed")
 
-    tracing("cuda", os.path.join(WORK, "tracing"), os.path.join(WORK, "golden"), bench)
+    em_profile = tracing("cuda", os.path.join(WORK, "tracing"), os.path.join(WORK, "golden"),
+                         bench)
     log("phase 10: tracing passed")
 
     cards = multi_card(os.path.join(WORK, "multi_card"), bench,
@@ -1894,6 +2465,54 @@ def main() -> int:
                       "baseline_ms": (ts_multi["baseline_ms"][0] if "baseline_ms" in ts_multi
                                       else None),
                       "ms_by_tile": {str(k): v[0] for k, v in ts_multi["tiles"].items()}},
+    }, {
+        "name": "gmm_em",
+        "route": "cuda",
+        "source": "ploidyfrost_tpu_torch/csrc/gmm_em.cu",
+        "replaces": "ploidyfrost_tpu/model/gmm.py:61",
+        "launches": em_launches,
+        "launches_multi3x5m": multi["em_launches"],
+        "launches_sharded_one_rank": cards["em_launches"],
+        "fits_checked": em_check["fits"] + em_real["fits"] + em_multi["fits"],
+        "max_abs_err": max(em_check["worst_abs"], em_real["worst_abs"], em_multi["worst_abs"]),
+        "max_rel_err": max(em_check["worst_rel"], em_real["worst_rel"], em_multi["worst_rel"]),
+        "ms": tem["ms"],
+        "plain_ms": tem["plain_ms"],
+        "bound_ms": tem["bound_ms"],
+        "bound_by": tem["bound_by"],
+        "library_ms": None,
+        "share_of_bound": tem["bound_ms"] / tem["ms"],
+        "latency_floor_ms": tem["floor_ms"],
+        "barrier_us": tem["barrier_ms"] * 1e3,
+        "launch_us": tem["launch_ms"] * 1e3,
+        "what": "the nine fits (g = 1..9) of bench5m's model stage, one launch each",
+        "by_gauss": [{"g": f["g"], "iterations": f["count"], "ms": f["ms"][0],
+                      "plain_ms": f["plain_ms"][0], "bound_ms": f["bound_ms"],
+                      "latency_floor_ms": f["floor_ms"], "pass_us": f["pass_body_ms"] * 1e3,
+                      "pass_floor_us": f["pass_floor_ms"] * 1e3,
+                      "chain_us": f["chain_ms"] * 1e3, "reduce_us": f["reduce_ms"] * 1e3}
+                     for f in tem["fits"]],
+        "profiled_fits": em_profile,
+    }, {
+        "name": "nw_wavefront",
+        "route": "cuda",
+        "source": "ploidyfrost_tpu_torch/csrc/nw_wavefront.cu",
+        "replaces": "ploidyfrost_tpu/align/batch_nw.py:78",
+        "launches": nw["launches"],
+        "chunks_checked": nw_check["chunks"] + nw["chunks"],
+        "whole_buffers_equal": nw_check["whole_equal"] and nw["whole_equal"],
+        "max_abs_err": float(max(nw_check["max_abs_err"], nw["max_abs_err"])),
+        "whole_buffers_max_abs_err": float(max(nw_check["whole_max_abs_err"],
+                                               nw["whole_max_abs_err"])),
+        "ms": nw["timing"]["ms"],
+        "plain_ms": nw["timing"]["plain_ms"],
+        "bound_ms": nw["timing"]["bound_ms"],
+        "bound_by": nw["timing"]["bound_by"],
+        "library_ms": None,
+        "share_of_bound": nw["timing"]["bound_ms"] / nw["timing"]["ms"],
+        "what": "every chunk of phase 9's real pairs, one launch each",
+        "by_tier": {str(t): {k: v[k] for k in ("pairs", "chunks", "ms", "plain_ms", "bound_ms")}
+                    for t, v in nw["timing"]["tiers"].items()},
     }]}
     print(smi)
     print(json.dumps(kernels))

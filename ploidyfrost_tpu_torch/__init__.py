@@ -6,9 +6,12 @@ k-mer counting -> cutoffs -> compacted, optionally colored, de Bruijn
 graph -> superbubbles -> branch alignment -> sites -> GMM-EM ploidy
 call) on an NVIDIA GPU, with their stage subcommands, the KMC and
 Bifrost file formats and the post-processing layer (filter.py,
-figures.py). Canonical k-mer extraction is a hand-written CUDA
-kernel (csrc/extract_canonical.cu); the counter's sort-collapse, the
-superbubble search, the EM loop and, on request, the link sort of graph
+figures.py). Four loops run on the card as hand-written CUDA kernels
+(csrc/, built with nvcc at first use): canonical k-mer extraction
+(extract_canonical.cu), the superbubble search (superbubble_search.cu),
+the whole EM loop of a GMM fit (gmm_em.cu) and, when the native NW
+library is missing, the NW flag wavefront (nw_wavefront.cu). The
+counter's sort-collapse and, on request, the link sort of graph
 construction are torch ops on the chosen device; graph construction,
 coloring, alignment and table output are host code (numpy and native
 C++). On several GPUs (`--devices`, parallel/) one rank a card shares

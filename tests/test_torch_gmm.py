@@ -2,7 +2,7 @@
 
 Allele frequencies are made by numpy from a seed (a diploid-like and a
 triploid-like mixture). `_em_iterate` (variances, weights, final
-log-likelihood) and, per gauss count g, the fitted model's
+log-likelihood; it also returns the iteration count) and, per gauss count g, the fitted model's
 log-likelihood and AIC must agree to rtol 1e-10: both sides compute in
 float64, and only the order of the [N, G] reductions differs (XLA's
 tree sums over a padded array against torch's blocked sums), which
@@ -42,9 +42,10 @@ def test_em_iterate_matches(kind, g):
         1000, (5.0, 2.0, 0.01),
     )
     f64 = lambda x: torch.tensor(x, dtype=torch.float64)  # noqa: E731
-    tv, tw, tll = T._em_iterate(
+    tv, tw, tll, count = T._em_iterate(
         f64(af), f64(jm.means), f64(jm.weights), f64(jm.vars), 1000, 5.0, 2.0, 0.01
     )
+    assert 1 <= count <= 1000
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=RTOL)
     np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=RTOL)
     np.testing.assert_allclose(float(tll), float(jll), rtol=RTOL)
