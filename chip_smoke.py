@@ -1,6 +1,7 @@
 """Smoke test of ploidyfrost_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--baseline-cu PATH] [--baseline-search-cu PATH] [--profile-multi]
+    python3 chip_smoke.py [--baseline-cu PATH] [--baseline-search-cu PATH]
+                          [--baseline-em-cu PATH] [--baseline-nw-cu PATH] [--profile-multi]
 
 Phases (any failure exits non-zero):
   1. build every CUDA kernel of the package from csrc/ (nvcc, sm_90a,
@@ -8,8 +9,11 @@ Phases (any failure exits non-zero):
      search kernel is built for, its registers, local memory, shared
      memory a block and resident blocks a multiprocessor at the default
      stack cap and at MAX_STACK_CAP; the same of the EM kernel (kernel
-     A, csrc/gmm_em.cu) at n = 20000 and g = 9 and 17 and of the NW
-     kernel (kernel B, csrc/nw_wavefront.cu) at every tier 16..2048;
+     A, csrc/gmm_em.cu) at bench5m's n = 9,987 for g = 1..9 (with the
+     launch's blocks and the multiprocessors they use) and at the wide
+     fits the checks run, and of the NW kernel (kernel B,
+     csrc/nw_wavefront.cu) at every tier 16..2048 (its path, cells a
+     lane, warps a block, blocks and multiprocessors of a chunk);
   2. hold kernel K1 (canonical k-mer extraction) bit-exact against its
      plain torch version on the card, over random codes with Ns and
      other invalid codes: k in {1, 2, 5, 16, 17, 25, 31}, L from k to
@@ -32,13 +36,16 @@ Phases (any failure exits non-zero):
      its plain version (em_iterate_plain) on the card within 1e-12
      relative on variances, weights and ll, with the same iteration
      count, on the three golden frequency sets at g = 1..9, N = 0 and
-     N = 1 at g = 1..3, g = 17 and g = 1600 (shared memory past 48 KB),
-     and two runs bit-identical (bench5m's
+     N = 1 at g = 1..3, g = 17, 33 and 64, g = 1600 (shared memory past
+     48 KB), g = 5000 (the state in the workspace), a NaN weight, and
+     two runs bit-identical (bench5m's
      and multi3x5m's frequencies follow in phases 4 and 6); kernel B
      against its plain version (_wavefront) on the card and the native
      kernel, every de-skewed window equal, on synthetic pairs of every
      tier (dashes in A, an empty A, full-length rows), and whether the
-     whole buffers agree;
+     whole buffers agree, then whole buffers equal at widths the tiers
+     do not use (17, 40, 100, 300, 511, 513, 700: both sides of the
+     register path's limit, odd chunks);
   3. golden: regenerate the single_diploid reads (100 kb diploid, k=25)
      and run the port's `pipeline` on the card: cutoffs (10, 37), the 12
      output tables byte-identical to tests/golden/single_diploid, the
@@ -65,10 +72,13 @@ Phases (any failure exits non-zero):
      of one counter batch, which must hold exactly one kernel, K1; kernel
      A on bench5m's frequencies at g = 1..9: equal to the plain version,
      then timed a fit (CUDA events, L2 scrubbed, in turns with the plain
-     version) with its bound (passes x the larger of 8 bytes a point at
-     3.35 TB/s and 13 g + 2 fp64 operations a point at 34 TFLOP/s), a
-     grid barrier and one pass measured apart, and the latency floor
-     (launch + (count + 1) x (one pass + two barriers));
+     version and, with --baseline-em-cu, an earlier EM source with the
+     same C ABI, its result held to the kernel's: plain, kernel,
+     baseline, kernel, baseline, plain) with its bound (passes x the
+     larger of 8 bytes a point at 3.35 TB/s and 13 g + 2 fp64 operations
+     a point at 34 TFLOP/s), a grid barrier and one pass measured apart,
+     and the latency floor (launch + (count + 1) x (one pass + one
+     barrier));
   5. colored golden: regenerate the multi_colored reads (3 diploid
      samples of one 60 kb genome, k=25) and run the colored path on the
      card: count, filter, union, color_graph, the .bfg_colors writer and
@@ -111,9 +121,12 @@ Phases (any failure exits non-zero):
      the native kernel and against the numpy wavefront (the device
      engine is kernel B); kernel B against its plain version chunk by
      chunk on the real pairs (windows equal, whole buffers reported) and
-     timed a chunk in turns with the plain version, with its bound (codes
-     in and flags out at 3.35 TB/s against 20 integer operations a
-     cell); the three engines timed on the real pairs; then `run` on that
+     timed a chunk in turns with the plain version (and, with
+     --baseline-nw-cu, an earlier NW source with the same C ABI, its
+     buffers held equal), with its bound (codes in and flags out at 3.35
+     TB/s against 20 integer operations a cell); the three engines timed
+     on the real pairs; one chunk under the profiler in a fresh process,
+     exactly one kernel; then `run` on that
      graph with the native NW library withheld for that call, under
      PLOIDYFROST_TRACE: the same 12 tables, ENGINE_CALLS["device"] > 0
      and ["numpy"] == 0, NW_LAUNCHES > 0, CUDA kernels in both phase
@@ -125,15 +138,16 @@ Phases (any failure exits non-zero):
      bench5m's superbubble search under the profiler: its kernels (the
      search kernel must be among them, no reduction kernel may be) and
      the card's busy share of it; then bench5m's nine GMM fits under the
-     profiler: exactly nine EM kernels, no other kernel, and at most two
-     copies a fit (parameters in, result out), whatever the iterations;
+     profiler: exactly nine EM kernels, no other kernel, no memset, and
+     at most two copies a fit (parameters in, result out), whatever the
+     iterations;
  11. several cards (parallel/): the visible card count; (a) a one-rank
      NCCL group on cuda:0: ShardedKmerCounter over bench5m's reads with
      the table, histogram and instance count of KmerCounter on the same
      batches, both timed in turns with their K1 launches and the sharded
      flushes (key bytes, route + merge seconds); the GMM fits on
-     bench5m's frequencies (gauss 1..9) through the group within 1e-12
-     relative of the single-device fits, both sides through kernel A
+     bench5m's frequencies (gauss 1..9) through the group equal to the
+     single-device fits (difference 0), both sides through kernel A
      (one launch a fit on one device; a pass and an update an iteration
      through the group); the superbubble search through
      the group equal to search_seeds and the bubbles equal, the search
@@ -304,10 +318,15 @@ def make_indel_reads(path: str):
                     f.write(f">r{n}\n{hap[s:s+150]}\n")
 
 
-def build_kernels(baseline_cu: str | None, baseline_search_cu: str | None):
-    """Build every csrc/*.cu at once (one nvcc each), the baseline K1 and
-    search sources if given, and the dependent-load probe, into WORK;
-    return (seconds, baseline K1 lib, baseline search lib, probe lib)."""
+# the earlier sources a call may time in turns with a kernel: flag, library
+BASELINES = {"k1": "libk1_baseline.so", "search": "libsearch_baseline.so",
+             "em": "libgmm_em_baseline.so", "nw": "libnw_baseline.so"}
+
+
+def build_kernels(baselines: dict):
+    """Build every csrc/*.cu at once (one nvcc each), the earlier sources
+    in `baselines` ({key of BASELINES: path}), and the dependent-load
+    probe, into WORK; return (seconds, {key: baseline lib}, probe lib)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ploidyfrost_tpu_torch.kmer import extract
@@ -323,22 +342,17 @@ def build_kernels(baseline_cu: str | None, baseline_search_cu: str | None):
         f.write(LOAD_LATENCY_CU)
     names = sorted(f[:-3] for f in os.listdir(extract.CSRC) if f.endswith(".cu"))
     t0 = time.time()
-    with ThreadPoolExecutor(max_workers=len(names) + 3) as pool:
-        base = pool.submit(nvcc, baseline_cu, "libk1_baseline.so") if baseline_cu else None
-        base_search = (pool.submit(nvcc, baseline_search_cu, "libsearch_baseline.so")
-                       if baseline_search_cu else None)
+    with ThreadPoolExecutor(max_workers=len(names) + len(baselines) + 1) as pool:
+        base = {key: pool.submit(nvcc, src, BASELINES[key]) for key, src in baselines.items()}
         probe = pool.submit(nvcc, probe_src, "libload_latency.so")
         libs = list(pool.map(extract.build, names))
-        base_lib = base.result() if base else None
-        base_search_lib = base_search.result() if base_search else None
+        base_libs = {key: f.result() for key, f in base.items()}
         probe_lib = probe.result()
     for name, lib in zip(names, libs):
         log(f"built {name} -> {os.path.relpath(lib, ROOT)}")
-    if base_lib:
-        log(f"built baseline K1 from {baseline_cu}")
-    if base_search_lib:
-        log(f"built baseline search kernel from {baseline_search_cu}")
-    return time.time() - t0, base_lib, base_search_lib, probe_lib
+    for key, src in baselines.items():
+        log(f"built the baseline {key} kernel from {src}")
+    return time.time() - t0, base_libs, probe_lib
 
 
 # One thread follows a chain of dependent 4-byte loads, each into a
@@ -892,9 +906,10 @@ def _em_init(g: int):
                  for x in (means, [1.0 / g] * g, [0.01] * g))
 
 
-def em_fit_same(af_np: np.ndarray, g: int, where: str, em_args=EM_ARGS) -> dict:
+def em_fit_same(af_np: np.ndarray, g: int, where: str, em_args=EM_ARGS, init=None) -> dict:
     """Kernel A's fit of af at g against the plain version on the card:
     variances, weights and ll within EM_RTOL relative, the same count.
+    `init`: (means, weights, variances) lists instead of _em_init(g).
     Returns {count, rel, abs, delta}: delta is the plain loop's last
     delta-ll, the one that stopped it (how far the count was from
     flipping: it stops at delta <= max_delta), None if no iteration ran."""
@@ -903,7 +918,9 @@ def em_fit_same(af_np: np.ndarray, g: int, where: str, em_args=EM_ARGS) -> dict:
     from ploidyfrost_tpu_torch.model import gmm
 
     af = torch.from_numpy(np.ascontiguousarray(af_np, dtype=np.float64)).cuda()
-    args = (af, *_em_init(g), *em_args)
+    start = _em_init(g) if init is None else tuple(
+        torch.tensor(x, dtype=torch.float64, device="cuda") for x in init)
+    args = (af, *start, *em_args)
     kv, kw, kll, kcount = gmm._em_iterate(*args)
     pv, pw, pll, pcount, delta = gmm.em_loop_plain(*args)
     delta = delta if pcount else None
@@ -950,9 +967,11 @@ def check_em_fits(sets: dict, gauss=range(1, 10), em_args=EM_ARGS) -> dict:
 
 def check_em() -> dict:
     """Phase 2, kernel A: the golden frequency sets at g = 1..9, N = 0
-    and N = 1, g = 17, g = 1600 (its components past 48 KB of shared
-    memory; 300 points, three iterations at most), and two runs giving
-    the same bits."""
+    and N = 1, g = 17, 33 and 64 (two lanes a point and more: the
+    components in chunks of 32), g = 1600 (its state past 48 KB of shared
+    memory; 300 points, three iterations at most) and g = 5000 (its state
+    in the workspace; 100 points, two iterations at most), a NaN weight,
+    and two runs giving the same bits."""
     import torch
 
     from ploidyfrost_tpu_torch.model import gmm
@@ -962,10 +981,20 @@ def check_em() -> dict:
                             ("indel_dense", GOLD_INDEL))}
     res = check_em_fits(sets)
     edge = check_em_fits({"N=0": np.zeros(0), "N=1": np.array([0.37])}, gauss=(1, 2, 3))
-    big = check_em_fits({"indel_dense": sets["indel_dense"]}, gauss=(17,))
+    big = check_em_fits({"indel_dense": sets["indel_dense"]}, gauss=(17, 33, 64))
     wide = check_em_fits({"indel_dense[:300]": sets["indel_dense"][:300]}, gauss=(1600,),
                          em_args=(3, *EM_ARGS[1:]))
-    for r in (edge, big, wide):
+    wider = check_em_fits({"indel_dense[:100]": sets["indel_dense"][:100]}, gauss=(5000,),
+                          em_args=(2, *EM_ARGS[1:]))
+    before = gmm.EM_LAUNCHES
+    means = [i / 4 for i in range(1, 4)]
+    nan = em_fit_same(sets["single_diploid"], 3, "a NaN weight",
+                      init=(means, [1 / 3, float("nan"), 1 / 3], [0.01] * 3))
+    gmm.EM_LAUNCHES = before
+    if nan["count"] != 1:
+        raise AssertionError(f"a NaN weight ran {nan['count']} iterations, not 1")
+    nan["fits"], nan["worst_rel"], nan["worst_abs"] = 1, nan["rel"], nan["abs"]
+    for r in (edge, big, wide, wider, nan):
         res["fits"] += r["fits"]
         res["worst_rel"] = max(res["worst_rel"], r["worst_rel"])
         res["worst_abs"] = max(res["worst_abs"], r["worst_abs"])
@@ -978,8 +1007,9 @@ def check_em() -> dict:
     if not same:
         raise AssertionError("two runs of the EM kernel gave different bits")
     log(f"phase 2: EM kernel equal to its plain version on the card on {res['fits']} fits (the "
-        f"three golden frequency sets at g = 1..9, N = 0 and N = 1 at g = 1..3, g = 17, "
-        f"g = 1600 past 48 KB of shared memory): "
+        f"three golden frequency sets at g = 1..9, N = 0 and N = 1 at g = 1..3, g = 17, 33, "
+        f"64, g = 1600 past 48 KB of shared memory, g = 5000 with its state in the workspace, "
+        f"a NaN weight): "
         f"identical iteration counts {res['counts']}, largest relative difference "
         f"{res['worst_rel']:.3g} (tolerance {EM_RTOL:g}); two runs bit-identical")
     return res
@@ -987,50 +1017,66 @@ def check_em() -> dict:
 
 def em_attributes(n: int, g: int) -> dict:
     """Kernel A compiled: registers, local bytes, shared bytes, blocks a
-    multiprocessor, threads, and the launch's blocks at n points, g."""
+    multiprocessor, threads, the launch's blocks at n points, g, and the
+    multiprocessors they use (one block a multiprocessor at most)."""
     import ctypes as ct
+
+    import torch
 
     from ploidyfrost_tpu_torch.model import gmm
 
     out = (ct.c_int * 6)()
     gmm._rc(gmm._load()["pf_gmm_em_attrs"](n, g, out), "attrs")
     keys = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm", "threads", "blocks")
-    return dict(zip(keys, out))
+    res = dict(zip(keys, out))
+    res["sms_used"] = min(res["blocks"], torch.cuda.get_device_properties(0).multi_processor_count)
+    return res
 
 
-def nw_attributes(tier: int) -> dict:
-    """Kernel B compiled at `tier`: registers, local bytes, shared bytes a
-    block, warps (pairs) a block, blocks a multiprocessor."""
+def nw_attributes(tier: int, pairs: int) -> dict:
+    """Kernel B compiled at `tier` for a chunk of `pairs`: registers, local
+    bytes, shared bytes a block, warps (pairs) a block, blocks a
+    multiprocessor, blocks of the launch, multiprocessors used, cells a
+    lane (0: the shared-memory path)."""
     import ctypes as ct
 
     from ploidyfrost_tpu_torch.kmer.extract import build
 
     fn = ct.CDLL(build("nw_wavefront")).pf_nw_wavefront_attrs
-    fn.argtypes = [ct.c_int, ct.c_void_p]
+    fn.argtypes = [ct.c_int, ct.c_int, ct.c_void_p]
     fn.restype = ct.c_int
-    out = (ct.c_int * 5)()
-    if fn(tier, out):
+    out = (ct.c_int * 8)()
+    if fn(tier, pairs, out):
         raise RuntimeError(f"nw_wavefront attributes failed at tier {tier}")
-    return dict(zip(("registers", "local_bytes", "shared_bytes", "warps", "blocks_per_sm"), out))
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "warps", "blocks_per_sm",
+                     "blocks", "sms_used", "cells_a_lane"), out))
 
 
 def em_nw_attributes():
-    """Phase 1: kernel A at bench5m's order of size and g = 9 and 17,
-    kernel B at every tier."""
-    from ploidyfrost_tpu_torch.align.batch_nw import _MAX_TIER, _MIN_TIER
+    """Phase 1: kernel A at bench5m's size (n = 9,987) for g = 1..9 and
+    at the wide fits the checks run, kernel B at every tier for a chunk
+    of _chunk_of(tier) pairs and for phase 9's chunks (512 pairs at tier
+    64, 190 at 128)."""
+    from ploidyfrost_tpu_torch.align.batch_nw import _MAX_TIER, _MIN_TIER, _chunk_of
 
-    for n, g in ((20000, 9), (20000, 17), (300, 1600), (1, 1)):
+    for n, g in [(9987, g) for g in range(1, 10)] + [(20000, 17), (300, 1600), (100, 5000),
+                                                      (1, 1)]:
         a = em_attributes(n, g)
         log(f"EM kernel at n={n}, g={g}: {a['registers']} registers and {a['local_bytes']} bytes "
             f"of local memory a thread, {a['shared_bytes']} bytes of shared memory a block of "
             f"{a['threads']} threads, {a['blocks_per_sm']} blocks resident a multiprocessor, "
-            f"{a['blocks']} blocks in the launch")
+            f"{a['blocks']} blocks in the launch on {a['sms_used']} multiprocessors")
     tier = _MIN_TIER
     while tier <= _MAX_TIER:
-        a = nw_attributes(tier)
-        log(f"NW kernel at tier {tier}: {a['registers']} registers and {a['local_bytes']} bytes of "
-            f"local memory a thread, {a['shared_bytes']} bytes of shared memory a block of "
-            f"{a['warps']} warps (pairs), {a['blocks_per_sm']} blocks resident a multiprocessor")
+        for pairs in sorted({_chunk_of(tier), {64: 512, 128: 190}.get(tier, _chunk_of(tier))}):
+            a = nw_attributes(tier, pairs)
+            path = (f"register path, {a['cells_a_lane']} cells a lane" if a["cells_a_lane"]
+                    else "shared-memory path")
+            log(f"NW kernel at tier {tier}, {pairs} pairs ({path}): {a['registers']} registers "
+                f"and {a['local_bytes']} bytes of local memory a thread, {a['shared_bytes']} bytes "
+                f"of shared memory a block of {a['warps']} warp(s), {a['blocks_per_sm']} blocks "
+                f"resident a multiprocessor, {a['blocks']} blocks on {a['sms_used']} "
+                "multiprocessors")
         tier *= 2
 
 
@@ -1125,28 +1171,77 @@ def check_nw_kernel() -> dict:
                    "".join(rng.choice("ACGT") for _ in range(tier - 1)))]
         tier *= 2
     res = nw_buffers_same(pairs, "the synthetic pairs")
+    # widths the tiers do not use: the register path at a k above the
+    # need and next to the shared-memory switch (511, 513), an odd chunk
+    import torch
+
+    from ploidyfrost_tpu_torch.align import batch_nw
+
+    before = batch_nw.NW_LAUNCHES
+    odd = (17, 40, 100, 300, 511, 513, 700)
+    for T in odd:
+        a_s = ["".join(rng.choice("ACGT-") for _ in range(rng.randint(0, T))) for _ in range(37)]
+        b_s = ["".join(rng.choice("ACGT-") for _ in range(rng.randint(1, T))) for _ in range(37)]
+        a, b, a_len = _nw_tensors(a_s, b_s, T)
+        if not torch.equal(batch_nw.nw_wavefront(a, b, a_len, 1, -2, -1),
+                           batch_nw._wavefront(a, b, a_len, 1, -2, -1)):
+            raise AssertionError(f"NW kernel differs from its plain version at T = {T}")
+        res["chunks"] += 1
+    batch_nw.NW_LAUNCHES = before
     log(f"phase 2: NW kernel on the card equal to its plain version and the native kernel on "
-        f"every de-skewed window of {len(pairs)} synthetic pairs ({res['chunks']} chunks, tiers "
-        f"16..2048, {res['cells']} cells); whole buffers "
-        f"{'equal' if res['whole_equal'] else 'NOT equal outside the windows'}")
+        f"every de-skewed window of {len(pairs)} synthetic pairs ({res['chunks'] - len(odd)} "
+        f"chunks, tiers 16..2048, {res['cells']} cells); whole buffers "
+        f"{'equal' if res['whole_equal'] else 'NOT equal outside the windows'}; whole buffers "
+        f"equal at T = {list(odd)} (37 pairs each)")
     return res
 
 
-def time_em(af_np: np.ndarray, name: str, reps: int = 30) -> dict:
+def _baseline_em(lib: str):
+    """fit(af, means, w, v, out) launching the earlier EM kernel in `lib`
+    (the C ABI of pf_gmm_em_plan and pf_gmm_em) at EM_ARGS, on a
+    workspace of its own."""
+    import ctypes as ct
+
+    import torch
+
+    so = ct.CDLL(lib)
+    p, i, ll, d = ct.c_void_p, ct.c_int, ct.c_longlong, ct.c_double
+    so.pf_gmm_em_plan.argtypes = [ll, i, p, p]
+    so.pf_gmm_em.argtypes = [p, ll, p, p, p, i, i, d, d, d, p, p, p]
+    so.pf_gmm_em_plan.restype = so.pf_gmm_em.restype = ct.c_int
+    works = {}
+
+    def fit(af, means, w, v, out):
+        g, n = means.numel(), af.numel()
+        if (n, g) not in works:
+            blocks, doubles = ct.c_int(), ct.c_longlong()
+            if so.pf_gmm_em_plan(n, g, ct.byref(blocks), ct.byref(doubles)):
+                raise RuntimeError("baseline EM plan failed")
+            works[n, g] = torch.empty(doubles.value, dtype=torch.float64, device="cuda")
+        if so.pf_gmm_em(af.data_ptr(), n, means.data_ptr(), w.data_ptr(), v.data_ptr(), g,
+                        EM_ARGS[0], *EM_ARGS[1:], works[n, g].data_ptr(), out.data_ptr(),
+                        torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("baseline EM launch failed")
+
+    return fit
+
+
+def time_em(af_np: np.ndarray, name: str, baseline_lib: str | None = None, reps: int = 30) -> dict:
     """Kernel A at `af` (a real run's frequencies) for g = 1..9, per fit
-    with CUDA events and L2 scrubbed: the bare launch and the plain version
-    in turns (plain, kernel, kernel, plain), the bound from this run's
-    passes, and a latency floor from parts measured apart from the fit
-    kernel: the launch (the barrier counter's memset and a cooperative
-    launch of the fit's blocks that do nothing), a grid barrier (the slope
-    of launches of 0 and 1000 barriers), and a pass floor, the slope over
-    rounds of one thread's chain for one point (its L2 read, g densities,
-    the log, g responsibilities) plus that of one block's reduction of its
-    sums and block 0's sum of the fit's rows (pf_gmm_floor_probe). The
-    floor is the launch + (count + 1) x (pass floor + two barriers). A
-    pass inside the fit kernel (a fit with max_iter = 0, less the launch
-    and two barriers) is reported beside the pass floor. Everything in
-    ms."""
+    with CUDA events and L2 scrubbed: the bare launch, the plain version
+    and, with `baseline_lib`, the earlier kernel (its result held to this
+    one's), in turns (plain, kernel, baseline, kernel, baseline, plain);
+    the bound from this run's passes; and a latency floor from parts
+    measured apart from the fit kernel, at each fit's blocks: the launch
+    (a cooperative launch of the fit's blocks that do nothing), a grid
+    barrier (the slope of launches of 0 and 1000 barriers), and a pass
+    floor, the slope over rounds of one warp's chain for one point a
+    segment (its L2 read, one density a lane, the segment sums, one
+    divide, the log) plus that of one block's reduction of its sums and
+    its sum of every block's row (pf_gmm_floor_probe). The floor is the
+    launch + (count + 1) x (pass floor + one barrier). A pass inside the
+    fit kernel (a fit with max_iter = 0, less the launch and a barrier) is
+    reported beside the pass floor. Everything in ms."""
     import torch
 
     from ploidyfrost_tpu_torch.kmer.extract_bench import (
@@ -1160,15 +1255,16 @@ def time_em(af_np: np.ndarray, name: str, reps: int = 30) -> dict:
     fits = []
     fns = gmm._load()
     stream = torch.cuda.current_stream().cuda_stream
-    bar = torch.zeros(1, dtype=torch.int64, device="cuda")
-    rows = {g: em_attributes(n, g)["blocks"] for g in range(1, 10)}
-    blocks = rows[9]
+    bar = torch.zeros(1, dtype=torch.int64, device="cuda")  # zeroed once: each probe leaves it so
+    attrs = {g: em_attributes(n, g) for g in range(1, 10)}
+    rows = {g: a["blocks"] for g, a in attrs.items()}
     scratch = torch.zeros(max(rows.values()) * 19, dtype=torch.float64, device="cuda")
     probe_out = torch.zeros(19, dtype=torch.float64, device="cuda")
+    base = _baseline_em(baseline_lib) if baseline_lib else None
 
-    def probe(rounds):
-        return lambda: gmm._rc(fns["pf_gmm_barrier_probe"](blocks, rounds, bar.data_ptr(),
-                                                           stream), "barrier probe")
+    def probe(blocks):
+        return lambda rounds: lambda: gmm._rc(fns["pf_gmm_barrier_probe"](
+            blocks, rounds, bar.data_ptr(), stream), "barrier probe")
 
     def slope(make, rounds, r=10):
         """ms a round of make(rounds): launches of 0 and `rounds` rounds."""
@@ -1181,22 +1277,36 @@ def time_em(af_np: np.ndarray, name: str, reps: int = 30) -> dict:
             "floor probe")
 
     rounds = 1000
-    launch_ms = spread(event_times(probe(0), reps, scrub))[0]
-    barrier_ms = slope(probe, rounds)
+    launch_ms = {b: spread(event_times(probe(b)(0), reps, scrub))[0] for b in set(rows.values())}
+    barrier_ms = {b: slope(probe(b), rounds) for b in set(rows.values())}
     for g in range(1, 10):
         init = _em_init(g)
         out = torch.empty(2 * g + 2, dtype=torch.float64, device="cuda")
         kernel = lambda: gmm.launch_em(af, *init, *EM_ARGS, out)  # noqa: E731
         plain = lambda: gmm.em_iterate_plain(af, *init, *EM_ARGS)  # noqa: E731
         one_pass = lambda: gmm.launch_em(af, *init, 0, *EM_ARGS[1:], out)  # noqa: E731
-        times = {"ms": [], "plain_ms": []}
-        for key, f, r in (("plain_ms", plain, 2), ("ms", kernel, reps // 2),
-                          ("ms", kernel, reps // 2), ("plain_ms", plain, 2)):
+        times = {"ms": [], "plain_ms": [], "baseline_ms": []}
+        order = [("plain_ms", plain, 2), ("ms", kernel, reps // 2)]
+        if base:
+            base_out = torch.empty_like(out)
+            older = lambda: base(af, *init, base_out)  # noqa: E731
+            order += [("baseline_ms", older, reps // 2), ("ms", kernel, reps // 2),
+                      ("baseline_ms", older, reps // 2)]
+        else:
+            order += [("ms", kernel, reps // 2)]
+        order += [("plain_ms", plain, 2)]
+        for key, f, r in order:
             times[key] += event_times(f, r, scrub)
-        count = int(out[2 * g + 1])
+        got = out.cpu().numpy()
+        count = int(got[2 * g + 1])
+        if base:
+            old = base_out.cpu().numpy()
+            if int(old[2 * g + 1]) != count or not np.allclose(old, got, rtol=EM_RTOL, atol=0):
+                raise AssertionError(f"the baseline EM kernel at g={g}: {old} against {got}")
+        b = rows[g]
         pass_ms = spread(event_times(one_pass, reps, scrub))[0]
-        chain_ms = slope(floor_part(0, g, rows[g]), rounds)
-        reduce_ms = slope(floor_part(1, g, rows[g]), rounds)
+        chain_ms = slope(floor_part(0, g, b), rounds)
+        reduce_ms = slope(floor_part(1, g, b), rounds)
         passes = count + 1
         t_bytes = passes * n * 8 / HBM_BYTES_PER_S * 1e3
         # a floor on a pass's fp64 work a point: per component the
@@ -1207,45 +1317,57 @@ def time_em(af_np: np.ndarray, name: str, reps: int = 30) -> dict:
         t_ops = ops / FP64_OPS_PER_S * 1e3
         pass_floor = chain_ms + reduce_ms
         fits.append({"g": g, "count": count, "ms": spread(times["ms"]),
-                     "plain_ms": spread(times["plain_ms"]), "pass_ms": pass_ms,
-                     "pass_body_ms": max(pass_ms - launch_ms - 2 * barrier_ms, 0.0),
+                     "plain_ms": spread(times["plain_ms"]),
+                     "baseline_ms": spread(times["baseline_ms"]) if base else None,
+                     "pass_ms": pass_ms, "blocks": b, "sms_used": attrs[g]["sms_used"],
+                     "pass_body_ms": max(pass_ms - launch_ms[b] - barrier_ms[b], 0.0),
                      "chain_ms": chain_ms, "reduce_ms": reduce_ms, "pass_floor_ms": pass_floor,
+                     "launch_ms": launch_ms[b], "barrier_ms": barrier_ms[b],
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                     "floor_ms": launch_ms + passes * (pass_floor + 2 * barrier_ms)})
+                     "floor_ms": launch_ms[b] + passes * (pass_floor + barrier_ms[b])})
     gmm.EM_LAUNCHES = before  # timing launches are not the main path's
     total = {key: sum(f[key][0] if isinstance(f[key], tuple) else f[key] for f in fits)
              for key in ("ms", "plain_ms", "bound_ms", "floor_ms")}
-    res = {"n": n, "fits": fits, "launch_ms": launch_ms, "barrier_ms": barrier_ms,
-           "blocks": blocks, **total,
+    total["baseline_ms"] = sum(f["baseline_ms"][0] for f in fits) if base else None
+    res = {"n": n, "fits": fits, "launch_ms": launch_ms[rows[9]],
+           "barrier_ms": barrier_ms[rows[9]], "blocks": rows[9],
+           "registers": attrs[9]["registers"], **total,
            "bound_by": "bytes" if all(f["bound_by"] == "bytes" for f in fits) else "operations"}
-    per = "; ".join(f"g={f['g']} {f['count']} it. {f['ms'][0]:.4f} [{f['ms'][1]:.4f}, "
-                    f"{f['ms'][2]:.4f}] ms, plain {f['plain_ms'][0]:.3f} ms, a pass in the "
-                    f"kernel {f['pass_body_ms'] * 1e3:.2f} us against a pass floor "
-                    f"{f['pass_floor_ms'] * 1e3:.2f} us (chain {f['chain_ms'] * 1e3:.2f}, "
-                    f"reductions {f['reduce_ms'] * 1e3:.2f}), bound {f['bound_ms'] * 1e3:.3f} us, "
-                    f"floor {f['floor_ms']:.4f} ms" for f in fits)
-    log(f"EM kernel at {name}'s {n} frequencies ({blocks} blocks at g = 9), per fit (median "
-        f"[min, max]): {per}")
-    log(f"EM kernel at {name}, the model stage's nine fits: kernel {res['ms']:.4f} ms, plain "
-        f"{res['plain_ms']:.3f} ms, bound {res['bound_ms'] * 1e3:.3f} us ({res['bound_by']}; "
-        f"{n * 8} bytes a pass at 3.35 TB/s against 13 g + 2 fp64 operations a point at "
-        f"{FP64_OPS_PER_S / 1e12:g} TFLOP/s), {100 * res['bound_ms'] / res['ms']:.2f}% of bound; "
-        f"latency floor {res['floor_ms']:.4f} ms (a launch, the memset and an empty "
-        f"cooperative grid, {launch_ms:.4f} ms; a grid barrier of {blocks} blocks "
-        f"{barrier_ms * 1e3:.2f} us; + (count + 1) x (the pass floor + two barriers), each "
-        f"part measured apart from the fit kernel), "
-        f"{100 * res['floor_ms'] / res['ms']:.1f}% of the kernel's time")
+    per = "; ".join(
+        f"g={f['g']} {f['count']} it. {f['ms'][0]:.4f} [{f['ms'][1]:.4f}, {f['ms'][2]:.4f}] ms"
+        + (f", baseline {f['baseline_ms'][0]:.4f} [{f['baseline_ms'][1]:.4f}, "
+           f"{f['baseline_ms'][2]:.4f}]" if base else "")
+        + f", plain {f['plain_ms'][0]:.3f} ms, {f['blocks']} blocks on {f['sms_used']} SMs, a "
+        f"pass in the kernel {f['pass_body_ms'] * 1e3:.2f} us against a pass floor "
+        f"{f['pass_floor_ms'] * 1e3:.2f} us (chain {f['chain_ms'] * 1e3:.2f}, reductions "
+        f"{f['reduce_ms'] * 1e3:.2f}), launch {f['launch_ms'] * 1e3:.2f} us, barrier "
+        f"{f['barrier_ms'] * 1e3:.2f} us, bound {f['bound_ms'] * 1e3:.3f} us, floor "
+        f"{f['floor_ms']:.4f} ms" for f in fits)
+    log(f"EM kernel at {name}'s {n} frequencies, per fit (median [min, max]): {per}")
+    log(f"EM kernel at {name}, the model stage's nine fits: kernel {res['ms']:.4f} ms"
+        + (f", baseline in turns {res['baseline_ms']:.4f} ms" if base else "")
+        + f", plain {res['plain_ms']:.3f} ms, bound {res['bound_ms'] * 1e3:.3f} us "
+        f"({res['bound_by']}; {n * 8} bytes a pass at 3.35 TB/s against 13 g + 2 fp64 "
+        f"operations a point at {FP64_OPS_PER_S / 1e12:g} TFLOP/s), "
+        f"{100 * res['bound_ms'] / res['ms']:.2f}% of bound; latency floor "
+        f"{res['floor_ms']:.4f} ms (a launch, an empty cooperative grid; a grid barrier; "
+        f"+ (count + 1) x (the pass floor + one barrier), each part measured apart from the fit "
+        f"kernel at the fit's blocks), {100 * res['floor_ms'] / res['ms']:.1f}% of the kernel's "
+        "time")
     return res
 
 
-def time_nw(pairs: list, name: str, reps: int = 20) -> dict:
+def time_nw(pairs: list, name: str, baseline_lib: str | None = None, reps: int = 20) -> dict:
     """Kernel B at `pairs`, chunk by chunk as nw_matrices_batched makes
-    them: the bare launch (CUDA events, L2 scrubbed) and the plain
-    `_wavefront` on the card in turns (plain, kernel, kernel, plain), per
-    tier; the bound from each chunk's bytes (codes and lengths in, flags
-    out at 3.35 TB/s) against its integer operations (about 20 a cell at
-    the card's 32-bit rate). Everything in ms."""
+    them: the bare launch (CUDA events, L2 scrubbed), the plain
+    `_wavefront` on the card and, with `baseline_lib`, the earlier kernel
+    (its buffer held equal to this one's) in turns (plain, kernel,
+    baseline, kernel, baseline, plain), per tier, with the launch's
+    registers, blocks and multiprocessors; the bound from each chunk's
+    bytes (codes and lengths in, flags out at 3.35 TB/s) against its
+    integer operations (about 20 a cell at the card's 32-bit rate).
+    Everything in ms."""
     from ploidyfrost_tpu_torch.align import batch_nw
     from ploidyfrost_tpu_torch.kmer.extract_bench import (
         ALU_OPS_PER_S, HBM_BYTES_PER_S, event_times, scrub_buffer, spread)
@@ -1255,20 +1377,45 @@ def time_nw(pairs: list, name: str, reps: int = 20) -> dict:
     scrub = scrub_buffer()
     before = batch_nw.NW_LAUNCHES
     tiers = {}
+    older = None
+    if baseline_lib:
+        import ctypes as ct
+
+        older = ct.CDLL(baseline_lib).pf_nw_wavefront
+        older.argtypes = [ct.c_void_p] * 3 + [ct.c_int] * 5 + [ct.c_void_p] * 2
+        older.restype = ct.c_int
     for tier, a_seqs, b_seqs in _nw_chunks(pairs):
         a, b, a_len = _nw_tensors(a_seqs, b_seqs, tier)
         CH = len(a_seqs)
         out = torch.empty((CH, 3, 2 * tier + 1, (tier + 9) // 8), dtype=torch.uint8, device="cuda")
         kernel = lambda: batch_nw.launch_wavefront(a, b, a_len, 2, -1, -3, out)  # noqa: E731
         plain = lambda: batch_nw._wavefront(a, b, a_len, 2, -1, -3)  # noqa: E731
-        times = {"ms": [], "plain_ms": []}
-        for key, f, r in (("plain_ms", plain, 1), ("ms", kernel, reps // 2),
-                          ("ms", kernel, reps // 2), ("plain_ms", plain, 1)):
+        times = {"ms": [], "plain_ms": [], "baseline_ms": []}
+        order = [("plain_ms", plain, 1), ("ms", kernel, reps // 2)]
+        if older:
+            base_out = torch.empty_like(out)
+
+            def base():
+                if older(a.data_ptr(), b.data_ptr(), a_len.data_ptr(), CH, tier, 2, -1, -3,
+                         base_out.data_ptr(), torch.cuda.current_stream().cuda_stream):
+                    raise RuntimeError("baseline NW launch failed")
+
+            order += [("baseline_ms", base, reps // 2), ("ms", kernel, reps // 2),
+                      ("baseline_ms", base, reps // 2)]
+        else:
+            order += [("ms", kernel, reps // 2)]
+        order += [("plain_ms", plain, 1)]
+        for key, f, r in order:
             times[key] += event_times(f, r, scrub)
+        if older and not torch.equal(base_out, out):
+            raise AssertionError(f"the baseline NW kernel differs at tier {tier}")
         nbytes = 2 * CH * tier + 4 * CH + out.numel()
         ops = 20 * CH * (2 * tier + 1) * (tier + 1)
         t = tiers.setdefault(tier, {"chunks": 0, "pairs": 0, "ms": 0.0, "min_ms": 0.0,
-                                    "max_ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0})
+                                    "max_ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0,
+                                    "baseline_ms": 0.0 if older else None,
+                                    "baseline_min_ms": 0.0, "baseline_max_ms": 0.0,
+                                    "attrs": nw_attributes(tier, CH)})
         k = spread(times["ms"])
         t["chunks"] += 1
         t["pairs"] += CH
@@ -1276,6 +1423,11 @@ def time_nw(pairs: list, name: str, reps: int = 20) -> dict:
         t["min_ms"] += k[1]
         t["max_ms"] += k[2]
         t["plain_ms"] += spread(times["plain_ms"])[0]
+        if older:
+            bs = spread(times["baseline_ms"])
+            t["baseline_ms"] += bs[0]
+            t["baseline_min_ms"] += bs[1]
+            t["baseline_max_ms"] += bs[2]
         t["bytes"] += nbytes
         t["ops"] += ops
     batch_nw.NW_LAUNCHES = before  # timing launches are not the main path's
@@ -1289,13 +1441,20 @@ def time_nw(pairs: list, name: str, reps: int = 20) -> dict:
     res["bound_by"] = ("bytes" if res["bytes"] / HBM_BYTES_PER_S >= res["ops"] / ALU_OPS_PER_S
                        else "operations")
     res["tiers"] = tiers
-    per = "; ".join(f"tier {tier}: {t['pairs']} pairs in {t['chunks']} chunk(s), kernel "
-                    f"{t['ms']:.4f} [{t['min_ms']:.4f}, {t['max_ms']:.4f}] ms, plain "
-                    f"{t['plain_ms']:.2f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
-                    for tier, t in sorted(tiers.items()))
+    res["baseline_ms"] = sum(t["baseline_ms"] for t in tiers.values()) if older else None
+    per = "; ".join(
+        f"tier {tier}: {t['pairs']} pairs in {t['chunks']} chunk(s), kernel {t['ms']:.4f} "
+        f"[{t['min_ms']:.4f}, {t['max_ms']:.4f}] ms"
+        + (f", baseline in turns {t['baseline_ms']:.4f} [{t['baseline_min_ms']:.4f}, "
+           f"{t['baseline_max_ms']:.4f}] ms" if older else "")
+        + f", plain {t['plain_ms']:.2f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
+        f"{t['attrs']['registers']} registers, {t['attrs']['warps']} warp(s) a block, "
+        f"{t['attrs']['blocks']} blocks on {t['attrs']['sms_used']} SMs"
+        for tier, t in sorted(tiers.items()))
     log(f"NW kernel at {name}'s {res['pairs']} pairs, a launch a chunk (median [min, max], "
         f"summed over a tier's chunks): {per}")
-    log(f"NW kernel at {name}, all {res['chunks']} chunks: kernel {res['ms']:.4f} ms, plain "
+    log(f"NW kernel at {name}, all {res['chunks']} chunks: kernel {res['ms']:.4f} ms, "
+        + (f"baseline in turns {res['baseline_ms']:.4f} ms, " if older else "") + f"plain "
         f"{res['plain_ms']:.2f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}: "
         f"{res['bytes']} bytes, {res['ops']} integer operations), "
         f"{100 * res['bound_ms'] / res['ms']:.1f}% of bound")
@@ -1800,7 +1959,8 @@ def _same_matrices(got, want, what: str):
                 raise AssertionError(f"NW {name} matrix of pair {i} differs from {what}")
 
 
-def nw_wavefront(device: str, work: str, bench_pairs: list) -> dict:
+def nw_wavefront(device: str, work: str, bench_pairs: list,
+                 baseline_lib: str | None = None) -> dict:
     """Phase 9: the indel_dense golden on the card, the device wavefront
     (the NW kernel) against the native kernel and the numpy wavefront on
     its real pairs, on bench5m's (`bench_pairs`) and on every tier, the
@@ -1877,22 +2037,18 @@ def nw_wavefront(device: str, work: str, bench_pairs: list) -> dict:
         f"every de-skewed window of the {len(real)} real pairs ({same['chunks']} chunks, "
         f"{same['cells']} cells); whole buffers "
         f"{'equal' if same['whole_equal'] else 'NOT equal outside the windows'}")
-    timing = time_nw(real, "phase 9")
+    timing = time_nw(real, "phase 9", baseline_lib)
 
-    # one chunk of the commonest tier under the profiler: launches a step
-    from ploidyfrost_tpu_torch.util.profiling import device_busy, profiled
-
+    # one chunk of the commonest tier under the profiler: one kernel
     tier = hist.most_common(1)[0][0]
     lanes = [p for p in real if batch_nw._tier_of(len(p[0]), len(p[1])) == tier][
         : batch_nw._chunk_of(tier)]
-    _sync(device)
-    with profiled(_activities(device)) as prof:
-        t0 = time.time()
-        batch_nw.wavefront_packed([a for a, _ in lanes], [b for _, b in lanes], tier, 2, -1, -3,
+    with open("nw_chunk.json", "w") as f:
+        json.dump(lanes, f)
+    busy, wall = in_fresh_process("profile_nw_chunk", os.path.abspath("nw_chunk.json"), tier,
                                   device)
-        _sync(device)
-        wall = time.time() - t0
-    busy = device_busy(prof, wall)
+    if device == "cuda" and busy["kernels"] != 1:
+        raise AssertionError(f"a tier-{tier} chunk ran {busy['kernels']} kernels, not one")
     log(f"phase 9: one tier-{tier} chunk of {len(lanes)} lanes under the profiler: "
         f"{busy['kernels']} kernel(s) for its {2 * tier + 1} wavefront steps, kernel time "
         f"{busy['kernel_s']:.6f} s, copies {busy['copy_s']:.6f} s, wall {wall:.4f} s, the card "
@@ -1916,6 +2072,27 @@ def nw_wavefront(device: str, work: str, bench_pairs: list) -> dict:
     return {"launches": launches, "chunks": same["chunks"], "whole_equal": same["whole_equal"],
             "max_abs_err": same["max_abs_err"], "whole_max_abs_err": same["whole_max_abs_err"],
             "timing": timing}
+
+
+def profile_nw_chunk(path: str, tier: int, device: str):
+    """One chunk (the pairs in the JSON file at `path`) through
+    wavefront_packed under the profiler, after one unprofiled run: (the
+    card's busy share of it, its wall)."""
+    from ploidyfrost_tpu_torch.align import batch_nw
+    from ploidyfrost_tpu_torch.util.profiling import device_busy, profiled
+
+    with open(path) as f:
+        pairs = json.load(f)
+    a_seqs, b_seqs = [a for a, _ in pairs], [b for _, b in pairs]
+
+    batch_nw.wavefront_packed(a_seqs, b_seqs, tier, 2, -1, -3, device)
+    _sync(device)
+    with profiled(_activities(device)) as prof:
+        t0 = time.time()
+        batch_nw.wavefront_packed(a_seqs, b_seqs, tier, 2, -1, -3, device)
+        _sync(device)
+        wall = time.time() - t0
+    return device_busy(prof, wall), wall
 
 
 def _trace_kernels(path: str) -> int:
@@ -2049,12 +2226,13 @@ def tracing(device: str, work: str, golden_dir: str, bench_dir: str) -> dict:
     em = in_fresh_process("profile_em", os.path.join(bench_dir, "PloidyFrost_output",
                                                      "bench5m_allele_frequency.txt"))
     if device == "cuda" and (em["em_kernels"] != 9 or em["launches"] != 9 or em["others"]
-                             or em["copies"] > 2 * 9):
+                             or em["copies"] > 2 * 9 or em["memsets"]):
         raise AssertionError(f"bench5m's nine fits under the profiler: {em}")
     log(f"phase 10: bench5m's nine GMM fits (iterations {em['counts']}, "
         f"{sum(em['counts'])} in all) under the profiler: {em['em_kernels']} EM kernels "
         f"({em['em_us'] / 1e3:.4f} ms), no other kernel, {em['copies']} copies and "
-        f"{em['memsets']} memsets: one launch and one readback a fit, none an iteration")
+        f"{em['memsets']} memsets: one launch and one readback a fit, none an iteration, and no "
+        "memset (the grid barrier's words reset themselves)")
     return em
 
 
@@ -2147,13 +2325,13 @@ def multi_card(work: str, bench: str, reads: str) -> dict:
                 fits[side] = np.concatenate([model.vars, model.weights, [model.log_likelihood]])
             rel = np.abs(fits["sharded"] - fits["single"]) / np.abs(fits["single"])
             worst = max(worst, float(rel.max()))
-        if worst > 1e-12:
+        if worst != 0.0:
             raise AssertionError(f"sharded EM differs from the single-device EM by {worst:.3g}")
         if min(em_launches.values()) < 9:
             raise AssertionError(f"EM kernel launches single and sharded: {em_launches}")
         res["em_launches"] = em_launches["sharded"]
         log(f"phase 11a: GMM fits on bench5m's {len(model.allele_fre)} frequencies, gauss 1..9, "
-            f"through the group: largest relative difference {worst:.3g} (tolerance 1e-12); "
+            f"through the group: largest relative difference {worst:.3g} (must be 0); "
             f"em_iterate seconds single {em_s['single']:.3f}, sharded {em_s['sharded']:.3f}; EM "
             f"kernel launches single {em_launches['single']} (one a fit), sharded "
             f"{em_launches['sharded']} (a pass and an update an iteration)")
@@ -2264,6 +2442,13 @@ def main() -> int:
                     help="an earlier search kernel source, C ABI pf_superbubble_search(seeds, S, "
                     "succ, n, ms, mstk, max_steps, status, psec, nseen, seen, cyc, stream), to "
                     "build and time beside the search kernel in this call")
+    ap.add_argument("--baseline-em-cu",
+                    help="an earlier EM kernel source, C ABI pf_gmm_em_plan(n, g, blocks, "
+                    "work_doubles) and pf_gmm_em(af, n, means, w, v, g, max_iter, m_thre, n_thre, "
+                    "max_delta, work, out, stream), to build and time beside the EM kernel")
+    ap.add_argument("--baseline-nw-cu",
+                    help="an earlier NW kernel source, C ABI pf_nw_wavefront(a, b, a_len, CH, T, "
+                    "match, dis, gap, out, stream), to build and time beside the NW kernel")
     ap.add_argument("--profile-multi", action="store_true",
                     help="run multi3x5m under cProfile and print its 40 largest entries")
     args = ap.parse_args()
@@ -2276,9 +2461,9 @@ def main() -> int:
 
     if "jax" in sys.modules or "ploidyfrost_tpu" in sys.modules:
         raise AssertionError("the port pulled in jax or ploidyfrost_tpu")
-    baseline_cu = os.path.abspath(args.baseline_cu) if args.baseline_cu else None
-    baseline_search_cu = (os.path.abspath(args.baseline_search_cu) if args.baseline_search_cu
-                          else None)
+    sources = {key: os.path.abspath(path) for key, path in (
+        ("k1", args.baseline_cu), ("search", args.baseline_search_cu),
+        ("em", args.baseline_em_cu), ("nw", args.baseline_nw_cu)) if path}
     # phases 1-10 on one card, however many the machine holds; phase 11
     # asks for more with --devices=N
     os.environ["PLOIDYFROST_DEVICES"] = "1"
@@ -2287,8 +2472,8 @@ def main() -> int:
 
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}, {card_name_and_power()}")
-    build_s, baseline_lib, baseline_search_lib, probe_lib = build_kernels(
-        baseline_cu, baseline_search_cu)
+    build_s, base_libs, probe_lib = build_kernels(sources)
+    baseline_lib, baseline_search_lib = base_libs.get("k1"), base_libs.get("search")
     log(f"phase 1: kernels built in {build_s:.2f} s")
     default_tile = search_attributes()
     em_nw_attributes()
@@ -2341,7 +2526,7 @@ def main() -> int:
     em_real = check_em_fits({"bench5m": bench_fre})
     log(f"EM kernel on bench5m's frequencies: largest relative difference from the plain "
         f"version {em_real['worst_rel']:.3g} (tolerance {EM_RTOL:g})")
-    tem = time_em(bench_fre, "bench5m")
+    tem = time_em(bench_fre, "bench5m", base_libs.get("em"))
     bench_gfa = os.path.join(bench, "bench5m.gfa")
     cases, err = check_search_real(bench_gfa, "bench5m")
     search_cases, search_err = search_cases + cases, max(search_err, err)
@@ -2403,7 +2588,7 @@ def main() -> int:
     log("phase 8: post-processing passed")
 
     nw = nw_wavefront("cuda", os.path.join(WORK, "indel_dense"),
-                      [p for call in bench_nw.calls for p in call])
+                      [p for call in bench_nw.calls for p in call], base_libs.get("nw"))
     log("phase 9: NW wavefront passed")
 
     em_profile = tracing("cuda", os.path.join(WORK, "tracing"), os.path.join(WORK, "golden"),
@@ -2485,8 +2670,14 @@ def main() -> int:
         "latency_floor_ms": tem["floor_ms"],
         "barrier_us": tem["barrier_ms"] * 1e3,
         "launch_us": tem["launch_ms"] * 1e3,
+        "baseline_ms": tem["baseline_ms"],
+        "registers": tem["registers"],
+        "blocks": tem["blocks"],
+        "sms_used": max(f["sms_used"] for f in tem["fits"]),
         "what": "the nine fits (g = 1..9) of bench5m's model stage, one launch each",
         "by_gauss": [{"g": f["g"], "iterations": f["count"], "ms": f["ms"][0],
+                      "baseline_ms": f["baseline_ms"][0] if f["baseline_ms"] else None,
+                      "blocks": f["blocks"], "sms_used": f["sms_used"],
                       "plain_ms": f["plain_ms"][0], "bound_ms": f["bound_ms"],
                       "latency_floor_ms": f["floor_ms"], "pass_us": f["pass_body_ms"] * 1e3,
                       "pass_floor_us": f["pass_floor_ms"] * 1e3,
@@ -2510,8 +2701,14 @@ def main() -> int:
         "bound_by": nw["timing"]["bound_by"],
         "library_ms": None,
         "share_of_bound": nw["timing"]["bound_ms"] / nw["timing"]["ms"],
+        "baseline_ms": nw["timing"]["baseline_ms"],
+        "registers": max(v["attrs"]["registers"] for v in nw["timing"]["tiers"].values()),
+        "sms_used": max(v["attrs"]["sms_used"] for v in nw["timing"]["tiers"].values()),
         "what": "every chunk of phase 9's real pairs, one launch each",
-        "by_tier": {str(t): {k: v[k] for k in ("pairs", "chunks", "ms", "plain_ms", "bound_ms")}
+        "by_tier": {str(t): {**{k: v[k] for k in ("pairs", "chunks", "ms", "plain_ms", "bound_ms",
+                                                  "baseline_ms")},
+                             **{k: v["attrs"][k] for k in ("registers", "warps", "blocks",
+                                                          "sms_used", "cells_a_lane")}}
                     for t, v in nw["timing"]["tiers"].items()},
     }]}
     print(smi)

@@ -28,8 +28,8 @@ Deliberately replicated reference quirks (each cited):
 
 Compute is float64 on the chosen device. On a card each fit is one
 launch of the hand-written kernel csrc/gmm_em.cu: the whole emIterate
-loop, one pass over the frequencies an iteration, with one readback of
-the result (`_em_iterate`; `EM_LAUNCHES` counts the launches). On the
+loop, one pass over the frequencies an iteration and one grid barrier,
+with one readback of the result (`_em_iterate`; `EM_LAUNCHES` counts the launches). On the
 CPU the plain version runs: the per-point, per-component E-step as one
 [N, G] torch broadcast, and the loop on the host (`em_iterate_plain`).
 Both sum in another order than the reference's sequential C++ doubles
@@ -55,8 +55,7 @@ from ..util.format import cpp_double
 DBL_MIN = float(np.finfo(np.float64).tiny)  # 2.2250738585072014e-308
 DBL_MAX = float(np.finfo(np.float64).max)
 _INT32_MAX = (1 << 31) - 1
-# components a fit takes (csrc/gmm_em.cu MAX_G: 4g doubles of them in a
-# block's shared memory)
+# components a fit takes (csrc/gmm_em.cu MAX_G)
 MAX_G = 7168
 
 # launches of csrc/gmm_em.cu made by the wrappers below (plain int; a run
@@ -65,6 +64,7 @@ EM_LAUNCHES = 0
 
 _lock = threading.Lock()
 _fns = None  # the library's entry points, bound at first launch
+_work = {}  # device -> the kernel's float64 workspace, its barrier words zeroed once
 
 
 def _sum(x, group):
@@ -223,11 +223,18 @@ def _rc(rc, what):
 
 def _workspace(n, g, device):
     """(blocks, float64 workspace) of a launch over n points at g
-    components on `device`."""
+    components on `device`. The workspace is kept for the device and grown
+    as a launch needs: it starts with the kernel's grid barrier words,
+    zeroed when it is made and left ready by every launch, so a launch
+    needs no memset."""
     blocks, doubles = ctypes.c_int(), ctypes.c_longlong()
     with torch.cuda.device(device):
         _rc(_load()["pf_gmm_em_plan"](n, g, ctypes.byref(blocks), ctypes.byref(doubles)), "plan")
-    return blocks.value, torch.empty(doubles.value, dtype=torch.float64, device=device)
+    with _lock:
+        work = _work.get(device)
+        if work is None or work.numel() < doubles.value:
+            work = _work[device] = torch.zeros(doubles.value, dtype=torch.float64, device=device)
+    return blocks.value, work
 
 
 def _stream(device):
@@ -290,7 +297,7 @@ def em_pass(af, means, weights, variances):
 
 def em_update(sums, weights, variances, m_thre, n_thre):
     """The update of (summed) pass sums [2g + 1]: (variances, weights) on
-    their device. CUDA tensors launch the kernel's one-thread update or
+    their device. CUDA tensors launch the kernel's one-block update or
     raise; CPU tensors take em_update_plain."""
     global EM_LAUNCHES
     _check(sums, weights, weights, variances)

@@ -3,22 +3,27 @@ the CPU, against the port's plain version and the JAX package.
 
 The emulation follows the kernel step for step: one pass over the
 frequencies an iteration, which gives the log-likelihood of (v_k, w_k)
-and the sums of the next update at once; a fixed partition of the
-points into `nblocks` contiguous ranges; in a block, THREADS threads
-striding over its range, a shuffle-down tree in each warp and the warps
-in turn; the blocks' rows summed lane-strided and by a shuffle tree;
-the update with NaN-propagating max and min. It must give what
-em_iterate_plain (two passes an iteration, torch's sums) and the JAX
+and the sums of the next update at once; a lane a (point, component),
+the components of a point in a segment of W lanes (g rounded up to a
+power of two, at most 32; for g > 32 a lane sums the densities of
+components j, j + 32, ... in order), its row sums by a butterfly over the
+segment; warp q of block b taking the points (b WARPS + q) P + slot and a
+grid's stride further, each lane's three running sums in that order; a
+shuffle-down tree over a warp's P = 32 / W slots, the warps of a block in
+turn; every block's row summed by groups of 16 lanes, lane-strided and
+by a shuffle tree; the update's total, max and min by butterflies,
+NaN-propagating. It must give
+what em_iterate_plain (two passes an iteration, torch's sums) and the JAX
 package's jitted `_em_iterate` (with a mask of ones) give, to rtol 1e-10
 (tests/test_torch_gmm.py: both sides float64, only the order of the sums
 differs), with the same iteration count. Data: the three golden allele
 frequency files at g = 1..9 and seeded diploid, triploid and tetraploid
 mixtures; edge cases N = 0 and 1, equal frequencies, max_iter 0 and 1, a
-fit whose rejection guard fires, g = 1, g = 17 (the kernel's path that
-recomputes densities a chunk of 16 components), a NaN weight. Then the
-sharded fit (model/gmm._em_iterate_group: a pass a rank, one all_reduce,
-the update) on 2 and 3 gloo ranks, one of them with an empty slice,
-against one device.
+fit whose rejection guard fires, g from 1 to 33 across the segment widths
+(g = 17 and 32 fill a warp, g = 33 takes the chunks of 32), a NaN weight.
+Then the sharded fit (model/gmm._em_iterate_group: a pass a rank, one
+all_reduce, the update) on 2 and 3 gloo ranks, one of them with an empty
+slice, against one device.
 """
 
 import os
@@ -32,44 +37,54 @@ from ploidyfrost_tpu_torch.model import gmm as T
 from test_torch_helpers import few_torch_threads  # noqa: F401  (autouse fixture)
 
 RTOL = 1e-10
-THREADS, WARPS, CHUNK = 256, 8, 16  # the kernel's block and register chunk
+THREADS, WARPS, SMS = 512, 16, 132  # the kernel's block; an H100's multiprocessors
 DBL_MIN, DBL_MAX = T.DBL_MIN, T.DBL_MAX
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 GOLDEN_SETS = ("single_diploid", "multi_colored", "indel_dense")
 
 
+def width(g):
+    """Lanes a point: g rounded up to a power of two, at most 32."""
+    w = 1
+    while w < g and w < 32:
+        w *= 2
+    return w
+
+
+def blocks_of(n, g, sms=SMS):
+    """The kernel's grid: a block a multiprocessor at most, fewer where n W
+    lanes fill fewer blocks of THREADS, at least one."""
+    return max(1, min(sms, -(-n * width(g) // THREADS)))
+
+
+def _butterfly(x):
+    """The xor-shuffle butterfly over the lanes of axis -1 (a power of two
+    long): pairs (0, 1), (2, 3), then pairs of pairs; every lane the same."""
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
 def _tree(x):
-    """__shfl_down_sync tree over the 32 lanes of axis -2: lane 0's sum."""
+    """A shuffle-down tree over axis -2 (a power of two long): element 0's
+    sum."""
     x = x.copy()
-    for off in (16, 8, 4, 2, 1):
+    off = x.shape[-2] // 2
+    while off:
         x[..., :off, :] = x[..., :off, :] + x[..., off : 2 * off, :]
+        off //= 2
     return x[..., 0, :]
 
 
-def _block_sum(vals):
-    """One block's sums of vals [m, ns]: thread t adds rows t, t +
-    THREADS, ... in turn; each warp's shuffle tree; the warps in turn."""
-    m, ns = vals.shape
-    per_thread = np.zeros((THREADS, ns))
-    for off in range(0, m, THREADS):
-        chunk = np.zeros((THREADS, ns))
-        chunk[: min(THREADS, m - off)] = vals[off : off + THREADS]
-        per_thread = per_thread + chunk
-    warps = _tree(per_thread.reshape(WARPS, 32, ns))
-    total = np.zeros(ns)
-    for w in range(WARPS):
-        total = total + warps[w]
-    return total
-
-
 def _rows_sum(rows):
-    """Block 0's sum of the blocks' rows [B, ns]: lane l adds rows l,
-    l + 32, ... in turn, then the shuffle tree."""
+    """Every block's sum of the blocks' rows [B, ns]: for each column, lane
+    l of a group of 16 adds rows l, l + 16, ... in turn, then the group's
+    shuffle tree."""
     B, ns = rows.shape
-    lanes = np.zeros((32, ns))
-    for off in range(0, B, 32):
-        chunk = np.zeros((32, ns))
-        chunk[: min(32, B - off)] = rows[off : off + 32]
+    lanes = np.zeros((16, ns))
+    for off in range(0, B, 16):
+        chunk = np.zeros((16, ns))
+        chunk[: min(16, B - off)] = rows[off : off + 16]
         lanes = lanes + chunk
     return _tree(lanes)
 
@@ -77,23 +92,37 @@ def _rows_sum(rows):
 def emulated_pass(af, means, w, v, nblocks):
     """[2g + 1] = ll, gauss sums, var sums at (w, v), as the kernel sums."""
     n, g = len(af), len(means)
+    W = width(g)
+    P, chunks = 32 // W, -(-g // W)
     coef = 1.0 / np.sqrt((2.0 * np.pi) * v)
     d = af[:, None] - means[None, :]
     wp = w[None, :] * (coef[None, :] * np.exp(-(d * d) / (2.0 * v)[None, :]))
     part = np.where(wp == 0.0, DBL_MIN, wp)
-    s = np.zeros(n)
-    rs = np.zeros(n)
-    for j in range(g):  # a thread's components in order
-        s = s + wp[:, j]
-        rs = rs + part[:, j]
+    # a lane's components j, j + W, ... in order (lanes past g add 0), then
+    # the butterfly over the segment
+    pad = np.zeros((n, chunks * W - g))
+    lane_s = np.concatenate([wp, pad], 1).reshape(n, chunks, W)
+    lane_rs = np.concatenate([part, pad], 1).reshape(n, chunks, W)
+    s, rs = lane_s[:, 0], lane_rs[:, 0]
+    for m in range(1, chunks):
+        s, rs = s + lane_s[:, m], rs + lane_rs[:, m]
+    s, rs = _butterfly(s), _butterfly(rs)
     resp = part / rs[:, None]
     vals = np.concatenate([np.log(np.where(s == 0.0, DBL_MIN, s))[:, None], resp,
                            resp * d * d], axis=1)
-    per = -(-n // nblocks)
+    vals = np.concatenate([vals, np.zeros((1, 2 * g + 1))])  # row n: a lane without a point
+    # lane (block b, warp q, slot) takes the points (b WARPS + q) P + slot + m stride
+    stride = nblocks * WARPS * P
+    first = (np.arange(nblocks)[:, None] * WARPS + np.arange(WARPS)[None, :]) * P
+    idx = first[:, :, None] + np.arange(P)[None, None, :]
+    acc = np.zeros((nblocks, WARPS, P, 2 * g + 1))
+    for m in range(max(1, -(-n // stride))):
+        i = idx + m * stride
+        acc = acc + vals[np.where(i < n, i, n)]
+    warps = _tree(acc)  # [B, WARPS, ns]: the slots of a warp
     rows = np.zeros((nblocks, 2 * g + 1))
-    for blk in range(nblocks):
-        lo = min(n, blk * per)
-        rows[blk] = _block_sum(vals[lo : min(n, lo + per)])
+    for q in range(WARPS):
+        rows = rows + warps[:, q]
     return _rows_sum(rows)
 
 
@@ -106,12 +135,16 @@ def _nan_min(a, b):
 
 
 def emulated_update(sums, w, v, m_thre, n_thre):
-    """(w, v, rejected) after the kernel's one-thread update."""
+    """(w, v, rejected) after the kernel's update: the total by lanes
+    l, l + 32, ... and a butterfly, the max and min NaN-propagating."""
     g = len(w)
     gsum, vsum = sums[1 : 1 + g], sums[1 + g :]
-    total = 0.0
-    for j in range(g):
-        total += gsum[j]
+    lanes = np.zeros(32)
+    for off in range(0, g, 32):
+        chunk = np.zeros(32)
+        chunk[: min(32, g - off)] = gsum[off : off + 32]
+        lanes = lanes + chunk
+    total = _butterfly(lanes)
     with np.errstate(divide="ignore", invalid="ignore"):
         nw = gsum / total
         nv = vsum / gsum
@@ -128,8 +161,8 @@ def emulated_update(sums, w, v, m_thre, n_thre):
 def emulated_em(af, means, w, v, max_iter=1000, m_thre=5.0, n_thre=2.0, max_delta=0.01,
                 nblocks=None):
     """The kernel's loop: (v, w, ll, count, passes, rejections)."""
-    if nblocks is None:  # the kernel's grid: a block a THREADS points, at least one
-        nblocks = max(1, min(132, -(-len(af) // THREADS)))
+    if nblocks is None:
+        nblocks = blocks_of(len(af), len(means))
     ll_prev, p, rejected = 0.0, 0, 0
     while True:
         with np.errstate(divide="ignore", invalid="ignore"):
@@ -250,10 +283,30 @@ def test_rejection_guard_fires():
 
 
 def test_g_above_the_register_chunk():
-    """g = 17: the kernel recomputes the densities for its second chunk of
-    components."""
-    assert 17 > CHUNK
+    """g = 17: a point fills a warp of 32 lanes, 15 of them past g, which
+    add 0 to the row sums."""
+    assert width(17) == 32
     _same(_mixture("tetraploid", n=2500, seed=4), 17)
+
+
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 33])
+def test_segment_widths(g):
+    """g across the segment widths: whole segments (1, 2, 4, 8, 16, 32),
+    lanes past g (3, 5, 9, 17), and g = 33, whose lanes sum two components
+    before the butterfly and keep the sums of one chunk of 32 at a time."""
+    count, _ = _same(_mixture("tetraploid", n=1200, seed=g), g)
+    assert count >= 1
+
+
+@pytest.mark.parametrize("n,g,want", [(9987, 1, 20), (9987, 2, 40), (9987, 3, 79),
+                                      (9987, 9, 132), (0, 3, 1), (1, 33, 1), (300, 1600, 19)])
+def test_block_count_from_the_work(n, g, want):
+    """The grid follows n W lanes, capped at one block a multiprocessor;
+    bench5m's 9,987 frequencies fill 20 to 132 blocks by g."""
+    assert blocks_of(n, g) == want
+    af = _mixture("diploid", n=max(n, 1), seed=n)[:n] if n <= 2000 else None
+    if af is not None:
+        _same(af, g, max_iter=3, check_jax=False)
 
 
 def test_nan_weight():

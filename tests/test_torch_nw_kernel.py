@@ -1,17 +1,27 @@
-"""The NW wavefront kernel's layout (csrc/nw_wavefront.cu), emulated in
-numpy on the CPU, against the port's plain version and the JAX package;
+"""The NW wavefront kernel's two paths (csrc/nw_wavefront.cu), emulated
+in numpy on the CPU, against the port's plain version and the JAX package;
 and the dispatchers of both new kernels, which send CUDA tensors to the
 kernels and never to the plain versions.
 
-The emulation follows the kernel: one warp a pair, lane l computing the
-cells i = 32 c + l of each anti-diagonal d, chunk c after chunk; the
-scores of three diagonals and their flag rows as 32-bit words (a
-ballot: bit l of word c for cell 32 c + l) in rotation; each diagonal's
-three rows written as the words' little-endian bytes, W8 of them. It must
-give the whole [CH, 3, 2T+1, W8] buffer of `_wavefront` and of the JAX
-package's `_build_kernel`, byte for byte, at tiers 16, 32 and 64 (W8 3, 5
-and 9: never a multiple of 4), with dashes in A, an empty A (a_len 0)
-and rows of full length.
+The register path (tiers up to 512): one warp a pair, lane l owning the
+contiguous cells l k .. l k + k - 1 (k = ceil((T + 1) / 32) rounded up to
+1, 2, 3, 5, 9 or 17); a cell's score on diagonals d - 1 and d - 2 kept
+plus each of its flag bits, and its a and b codes, in registers; cell
+i - 1 of a run's first cell and the b code that enters the run shuffled
+up from lane l - 1, lane 0 reading b at clip(d - 1, 0, T - 1); each
+cell's three flags staged as one byte, rows of 8 W8 cells end to end,
+then packed 8 cells to a byte by a multiply. The shared-memory path
+(tiers 1024 and 2048): lane l computing the cells i = 32 c + l of each
+anti-diagonal, chunk c after chunk; the scores of three diagonals and
+their flag rows as 32-bit words (a ballot: bit l of word c for cell
+32 c + l) in rotation; each diagonal's three rows written as the words'
+little-endian bytes. Each
+must give the whole [CH, 3, 2T+1, W8] buffer of `_wavefront` and of the
+JAX package's `_build_kernel`, byte for byte: tiers 16, 32 and 64 (W8 3, 5
+and 9: never a multiple of 4; k 1, 2 and 3), 128, 256 and 512 (k 5, 9 and
+17, the largest on the register path) and 1024 (the shared-memory path),
+with dashes in A, an empty A (a_len 0), rows of full length and odd
+chunks.
 """
 
 import random
@@ -27,11 +37,93 @@ from test_torch_helpers import few_torch_threads  # noqa: F401  (autouse fixture
 
 DASH, PAD = 4, 7
 I32MIN = np.int32(-(2**31))
+REGISTER_K = (1, 2, 3, 5, 9, 17)  # the register path's template widths
+
+
+def k_of(T):
+    """Cells a lane on the register path at tier T, or 0 for the
+    shared-memory path."""
+    need = -(-(T + 1) // 32)
+    return next((k for k in REGISTER_K if need <= k), 0)
 
 
 def emulated_kernel(a, b, a_len, match, dis, gap):
-    """The kernel's result for a, b [CH, T] uint8 and a_len [CH, 1],
-    vectorised over the pairs (the warps) and the 32 lanes."""
+    """The kernel's result for a, b [CH, T] uint8 and a_len [CH, 1]: the
+    register path where k_of(T) is not 0, else the shared-memory path."""
+    return (emulated_registers if k_of(a.shape[1]) else emulated_shared)(a, b, a_len, match, dis,
+                                                                         gap)
+
+
+def _shfl_up(x):
+    """__shfl_up_sync by one over the lanes (axis 1): lane 0 keeps its own."""
+    return np.concatenate([x[:, :1], x[:, :-1]], axis=1)
+
+
+def emulated_registers(a, b, a_len, match, dis, gap):
+    """The register path, vectorised over the pairs (the warps) and the 32
+    lanes, a lane's K cells in turn."""
+    CH, T = a.shape
+    K = k_of(T)
+    W8, D = (T + 9) // 8, 2 * T + 1
+    C = 8 * W8  # staged cells a row: the rows run on without a gap
+    i32 = np.int32
+    cell = np.arange(32)[:, None] * K + np.arange(K)[None, :]  # [32, K]: lane l's cells
+    ax = np.full((CH, 32 * K + 2), PAD, np.uint8)
+    ax[:, 1 : T + 1] = a  # ax[:, i] = A[i - 1], PAD past T
+    ac = ax[:, cell].astype(i32)
+    forbid = (cell[None] != a_len[:, :, None]) & (ax[:, cell + 1] == DASH)
+    bc = np.repeat(b[:, :1].astype(i32), 32 * K, 1).reshape(CH, 32, K)
+    # a cell's score plus the flag bit a move out of it adds: Up, LeftUp and
+    # Left of diagonal d - 1, LeftUp of d - 2
+    pU, pL, pF, qL = (np.zeros((CH, 32, K), i32) for _ in range(4))
+    stage = np.zeros((CH, D * C), np.uint8)  # a cell's flags, bit f for flag f
+    valid = cell <= T
+    with np.errstate(over="ignore"):
+        for d in range(D):
+            up_in = _shfl_up(pU[:, :, K - 1])
+            lu_in = _shfl_up(qL[:, :, K - 1])
+            b_in = _shfl_up(bc[:, :, K - 1])
+            b_in[:, 0] = b[:, min(max(d - 1, 0), T - 1)]
+            bc = np.concatenate([b_in[:, :, None], bc[:, :, :-1]], axis=2)
+            bound = i32(gap) * i32(d)
+            nU, nL, nF = (np.empty_like(pU) for _ in range(3))
+            flags = np.empty((CH, 32, K), np.uint8)
+            for t in range(K):
+                ach, bch = ac[:, :, t], bc[:, :, t]
+                sub = np.where(ach == bch, i32(match),
+                               np.where((ach == DASH) | (bch == DASH), i32(gap), i32(dis)))
+                up = (up_in if t == 0 else pU[:, :, t - 1]) + i32(gap)
+                lu = (lu_in if t == 0 else qL[:, :, t - 1]) + sub
+                left = pF[:, :, t] + i32(gap)
+                up_lu = np.maximum(up, lu)
+                mx = np.maximum(up_lu, left)
+                off = (mx == left) & forbid[:, :, t]
+                left = np.where(off, I32MIN, left)
+                mx = np.where(off, up_lu, mx)
+                j0 = (cell[:, t] == d)[None, :]  # cell (d, 0)
+                s = np.where(j0, bound, mx)
+                u, l_, f = j0 | (up == mx), ~j0 & (lu == mx), ~j0 & (left == mx)
+                if t == 0:  # lane 0: cell (0, d)
+                    s[:, 0], u[:, 0], l_[:, 0], f[:, 0] = bound, False, False, d > 0
+                nU[:, :, t], nL[:, :, t], nF[:, :, t] = s + u, s + l_, s + f
+                flags[:, :, t] = u | l_.astype(np.uint8) << 1 | f.astype(np.uint8) << 2
+            stage[:, d * C + cell[valid]] = flags[:, valid]
+            qL, pU, pL, pF = pL, nU, nL, nF
+    # the flush: byte e of a flag's rows from cells 8e .. 8e + 7, four cells
+    # a multiply
+    words = stage.view("<u4")  # [CH, D C / 4]
+    lo, hi = words[:, 0::2], words[:, 1::2]
+    out = np.zeros((CH, 3, D, W8), np.uint8)
+    for f in range(3):
+        nib = [(((x >> np.uint32(f)) & np.uint32(0x01010101)) * np.uint32(0x10204080))
+               >> np.uint32(28) for x in (lo, hi)]
+        out[:, f] = (nib[0] | nib[1] << np.uint32(4)).astype(np.uint8).reshape(CH, D, W8)
+    return out
+
+
+def emulated_shared(a, b, a_len, match, dis, gap):
+    """The shared-memory path, vectorised over the pairs (the warps) and
+    the 32 lanes."""
     CH, T = a.shape
     nc, W8, D = (T + 9 + 31) // 32, (T + 9) // 8, 2 * T + 1
     i32 = np.int32
@@ -122,6 +214,50 @@ def test_emulation_equals_plain_and_jax(tier, scoring):
     ref = np.asarray(jax_batch_nw._build_kernel(tier, len(a), *scoring)(
         jnp.asarray(ea), jnp.asarray(eb), jnp.asarray(el)))
     np.testing.assert_array_equal(got, ref)
+
+
+def test_register_widths_of_the_tiers():
+    """k at each tier: 1, 2, 3, 5, 9 and 17 cells a lane up to 512, then
+    the shared-memory path; T + 1 cells always fit 32 lanes of k."""
+    assert [k_of(t) for t in (16, 32, 64, 128, 256, 512, 1024, 2048)] == [1, 2, 3, 5, 9, 17, 0, 0]
+    assert k_of(511) == 16 + 1 and k_of(100) == 5 and k_of(31) == 1
+    assert all(32 * k_of(t) >= t + 1 for t in range(16, 544))
+
+
+@pytest.mark.parametrize("tier,pairs", [(128, 9), (256, 7), (512, 5), (1024, 3)])
+def test_wider_tiers_equal_plain_and_jax(tier, pairs):
+    """k = 5, 9 and the largest register k (17), and the shared-memory
+    path (1024), on odd chunks."""
+    rng = random.Random(tier)
+    a = ["", "-" * tier] + [_rand_seq(rng, tier // 2 + 1, tier, dash=True)
+                            for _ in range(pairs - 2)]
+    b = ["ACGT" * (tier // 4), _rand_seq(rng, 1, tier)] + [_rand_seq(rng, 1, tier)
+                                                          for _ in range(pairs - 2)]
+    ea, eb, el = _encoded(a, b, tier)
+    got = emulated_kernel(ea, eb, el, 2, -1, -3)
+    plain = batch_nw._wavefront(torch.from_numpy(ea), torch.from_numpy(eb),
+                                torch.from_numpy(el), 2, -1, -3).numpy()
+    np.testing.assert_array_equal(got, plain)
+    import jax.numpy as jnp
+
+    ref = np.asarray(jax_batch_nw._build_kernel(tier, pairs, 2, -1, -3)(
+        jnp.asarray(ea), jnp.asarray(eb), jnp.asarray(el)))
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("T", [17, 40, 100, 511])
+def test_widths_off_the_tiers(T):
+    """A T the tiers do not use takes the next register k up (lanes past
+    T compute cells nobody reads); both paths give the plain buffer."""
+    rng = random.Random(T)
+    a = [_rand_seq(rng, 0, T, dash=True) for _ in range(5)]
+    b = [_rand_seq(rng, 1, T, dash=True) for _ in range(5)]
+    ea, eb, el = _encoded(a, b, T)
+    plain = batch_nw._wavefront(torch.from_numpy(ea), torch.from_numpy(eb),
+                                torch.from_numpy(el), 1, -2, -1).numpy()
+    np.testing.assert_array_equal(emulated_registers(ea, eb, el, 1, -2, -1), plain)
+    if T <= 100:
+        np.testing.assert_array_equal(emulated_shared(ea, eb, el, 1, -2, -1), plain)
 
 
 @pytest.mark.parametrize("tier", [16, 32, 64])
