@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py [--baseline-cu PATH] [--baseline-search-cu PATH]
                           [--baseline-em-cu PATH] [--baseline-nw-cu PATH] [--profile-multi]
+                          [--several-cards-only]
 
 Phases (any failure exits non-zero):
   1. build every CUDA kernel of the package from csrc/ (nvcc, sm_90a,
@@ -144,19 +145,32 @@ Phases (any failure exits non-zero):
  11. several cards (parallel/): the visible card count; (a) a one-rank
      NCCL group on cuda:0: ShardedKmerCounter over bench5m's reads with
      the table, histogram and instance count of KmerCounter on the same
-     batches, both timed in turns with their K1 launches and the sharded
-     flushes (key bytes, route + merge seconds); the GMM fits on
-     bench5m's frequencies (gauss 1..9) through the group equal to the
-     single-device fits (difference 0), both sides through kernel A
-     (one launch a fit on one device; a pass and an update an iteration
-     through the group); the superbubble search through
-     the group equal to search_seeds and the bubbles equal, the search
-     kernel launched through the group; (b) with two
-     or more cards, `pipeline --devices=min(4, cards)` on bench5m as a
-     user runs it (python -m ploidyfrost_tpu_torch.cli): every file it
-     writes byte-identical to phase 4's, every rank's stage seconds and
-     K1 and search launches printed (none may be 0); with one card, one
-     line that says the run on several cards was not possible here.
+     batches, in turns (single, sharded, sharded, single), each with its
+     count + finalize wall, its finalize alone (the last flush, the
+     reduction, the table to the host), its peak device memory above
+     what was allocated before (reset before each), its K1 launches and
+     the sharded flushes (key bytes, route + merge seconds); the GMM
+     fits on bench5m's frequencies (gauss 1..9) through the group equal
+     to the single-device fits (difference 0), both sides through kernel
+     A (one launch a fit on one device; a pass and an update an
+     iteration through the group); the superbubble search through the
+     group equal to search_seeds and the bubbles equal, the search
+     kernel launched through the group; `pipeline` on bench5m through the
+     group (run_pipeline_cli with the group): every file byte-identical
+     to phase 4's, K1, the search and the EM kernel launched; (b) with
+     two or more cards, `pipeline --devices=N` on bench5m and
+     `pipeline-multi --devices=N` on multi3x5m, N = min(4, cards), as a
+     user runs them (python -m ploidyfrost_tpu_torch.cli), in turns
+     with `--devices=1` in the same call (bench5m 1, N, N, 1; multi3x5m
+     1, N): every file byte-identical to the one-card run's, ploidy 2,
+     every rank's line printed (K1 and search launches, none 0, EM
+     launches at least nine; peak
+     device memory; seconds from process start to group join; stage
+     seconds, the ranks other than 0 with no graph and no sites pass),
+     and the wall that rank 0's start-to-join and stages do not cover;
+     with one card, one line that says the run on several cards was not
+     possible here. `--several-cards-only` runs (b) alone, for a call on
+     several cards.
 
 Phases 1-10 run on one card (PLOIDYFROST_DEVICES=1 for the CLI calls),
 whatever the machine holds. All five native host libraries must load.
@@ -2241,15 +2255,16 @@ def _file_set(d: str) -> set[str]:
 
 
 def multi_card(work: str, bench: str, reads: str) -> dict:
-    """Phase 11: the sharded counter, EM and search on a one-rank NCCL
-    group against the single-device ones; with two or more cards the
-    bench5m `pipeline` on several cards against phase 4's files."""
+    """Phase 11a: the sharded counter, EM and search on a one-rank NCCL
+    group against the single-device ones, and `pipeline` through that
+    group against phase 4's files."""
     import torch
     import torch.distributed as dist
 
     from ploidyfrost_tpu_torch.bubble import batched
     from ploidyfrost_tpu_torch.bubble.batched import (
         canonical_seeds, find_superbubbles_device, search_seeds)
+    from ploidyfrost_tpu_torch.cli import Options, parse_options
     from ploidyfrost_tpu_torch.graph.cdbg import CDBGraph
     from ploidyfrost_tpu_torch.io.fastx import read_batches
     from ploidyfrost_tpu_torch.kmer import extract
@@ -2258,6 +2273,7 @@ def multi_card(work: str, bench: str, reads: str) -> dict:
     from ploidyfrost_tpu_torch.model.gmm import GmmModel
     from ploidyfrost_tpu_torch.parallel.mesh import RankPlan, init_group
     from ploidyfrost_tpu_torch.parallel.sharded import ShardedKmerCounter
+    from ploidyfrost_tpu_torch.pipeline import run_pipeline_cli
 
     os.makedirs(work, exist_ok=True)
     os.chdir(work)
@@ -2273,17 +2289,35 @@ def multi_card(work: str, bench: str, reads: str) -> dict:
     try:
         batches = list(read_batches([reads], 25))
         times = {"single": [], "sharded": []}
+        finals = {"single": [], "sharded": []}
+        peaks = {"single": [], "sharded": []}
+        final_peaks = {"single": [], "sharded": []}
         launches, tables = {}, {}
         for side in ("single", "sharded", "sharded", "single"):
             torch.cuda.synchronize()
             extract.LAUNCHES = 0
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.time()
             c = KmerCounter(25, device="cuda") if side == "single" else \
                 ShardedKmerCounter(group, 25)
             for b in batches:
                 c.add_reads(b)
+            c.flush()
+            torch.cuda.synchronize()
+            t1 = time.time()
+            count_peak = torch.cuda.max_memory_allocated()
+            final_base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            if side == "sharded":
+                c.finalize()
             km, ct = c.arrays()
-            times[side].append(time.time() - t0)
+            t2 = time.time()
+            final_peak = torch.cuda.max_memory_allocated()
+            peaks[side].append(max(count_peak, final_peak) - base)
+            final_peaks[side].append(final_peak - final_base)
+            times[side].append(t2 - t0)
+            finals[side].append(t2 - t1)
             launches[side] = extract.LAUNCHES
             tables[side] = (km, ct, c.histogram(10000), c.total_kmers)
             if side == "sharded":
@@ -2297,15 +2331,25 @@ def multi_card(work: str, bench: str, reads: str) -> dict:
             raise AssertionError(f"K1 launches: single {launches['single']}, "
                                  f"sharded {launches['sharded']}")
         res["launches"] = launches["sharded"]
+        mib = {side: [round(x / 2**20, 1) for x in v] for side, v in peaks.items()}
+        final_mib = {side: [round(x / 2**20, 1) for x in v] for side, v in final_peaks.items()}
         log(f"phase 11a: one-rank NCCL group on cuda:0, bench5m ({len(batches)} batches, "
             f"{a[3]} k-mer instances, {len(a[0])} distinct): ShardedKmerCounter table, "
-            f"histogram and instance count equal to KmerCounter's; count + finalize wall "
-            f"KmerCounter {min(times['single']):.3f} s and {max(times['single']):.3f} s, "
-            f"ShardedKmerCounter {min(times['sharded']):.3f} s and {max(times['sharded']):.3f} s "
-            f"(in turns); K1 launches {launches['single']} and {launches['sharded']}; "
-            f"{len(flushes)} flushes, all_to_all key bytes "
-            f"{[nb for nb, _ in flushes]}, route + merge s "
-            f"{[round(t, 4) for _, t in flushes]}")
+            f"histogram and instance count equal to KmerCounter's; in turns (single, sharded, "
+            f"sharded, single): count + finalize wall KmerCounter "
+            f"{[round(x, 4) for x in times['single']]} s, ShardedKmerCounter "
+            f"{[round(x, 4) for x in times['sharded']]} s; of it the finalize after the last "
+            f"flush (the reduction, the table to the host) KmerCounter "
+            f"{[round(x, 4) for x in finals['single']]} s, ShardedKmerCounter "
+            f"{[round(x, 4) for x in finals['sharded']]} s; peak device memory above what was "
+            f"allocated before, count + finalize: KmerCounter {mib['single']} MiB, "
+            f"ShardedKmerCounter {mib['sharded']} MiB; of the finalize alone, above what the "
+            f"counter held: KmerCounter {final_mib['single']} MiB, ShardedKmerCounter "
+            f"{final_mib['sharded']} MiB; K1 launches {launches['single']} and "
+            f"{launches['sharded']}; {len(flushes)} flushes, all_to_all key bytes "
+            f"{[nb for nb, _ in flushes]}, route + merge s {[round(t, 4) for _, t in flushes]}")
+        res["count_peak_mib"], res["finalize_peak_mib"] = mib, final_mib
+        res["count_s"], res["finalize_s"] = times, finals
 
         fre = os.path.join(bench, "PloidyFrost_output", "bench5m_allele_frequency.txt")
         em_s = {"single": 0.0, "sharded": 0.0}
@@ -2361,41 +2405,134 @@ def multi_card(work: str, bench: str, reads: str) -> dict:
             f"through the group equal to search_seeds; search seconds single "
             f"{search_s['single']:.3f}, sharded {search_s['sharded']:.3f}; search kernel "
             f"launches {search_launches['single']} and {search_launches['sharded']}")
-    finally:
-        dist.destroy_process_group()
 
+        d = os.path.join(work, "group_pipeline")
+        os.makedirs(d)
+        os.chdir(d)
+        opt = parse_options(["-o", "bench5m", reads], Options(), extras="c")
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        if run_pipeline_cli(opt, "cuda", group) != 0:
+            raise RuntimeError("pipeline on the one-rank group failed")
+        wall = time.time() - t0
+        check_counts("the pipeline on the one-rank group")
+        same = _same_files(d, bench, "pipeline on the one-rank group")
+        log(f"phase 11a: `pipeline` on the one-rank NCCL group: {same} files byte-identical to "
+            f"phase 4's one-card run, wall {wall:.3f} s, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, stages "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in opt.stage_seconds.items()))
+    finally:
+        os.chdir(work)
+        dist.destroy_process_group()
+    return res
+
+
+def _same_files(mine: str, want: str, what: str) -> int:
+    """Every file under `mine` byte-identical to the one of that name
+    under `want`; returns how many."""
+    names = _file_set(mine)
+    if not names or not names <= _file_set(want):
+        raise AssertionError(f"{what} wrote {sorted(names)}")
+    for name in sorted(names):
+        with open(os.path.join(mine, name), "rb") as f1, open(os.path.join(want, name), "rb") as f2:
+            if f1.read() != f2.read():
+                raise AssertionError(f"{what}: {name} differs")
+    return len(names)
+
+
+def _rank_fields(line: str) -> dict:
+    """The fields of a `rank r: key value, ...` line, values as floats."""
+    pairs = (kv.rsplit(" ", 1) for kv in line.split(": ", 1)[1].split(", "))
+    return {k: float(v) for k, v in pairs}
+
+
+def several_cards(work: str) -> dict:
+    """Phase 11b, with two or more cards: `pipeline --devices=N` on
+    bench5m and `pipeline-multi --devices=N` on multi3x5m as a user runs
+    them (python -m ploidyfrost_tpu_torch.cli, N = min(4, cards)), in
+    turns with `--devices=1` in the same call (bench5m 1, N, N, 1;
+    multi3x5m 1, N): every file byte-identical to the one-card run's,
+    ploidy 2; every rank's line (K1 and search launches, none 0, and EM
+    launches, at least nine; peak
+    device memory; seconds from its process's start to its group join;
+    its stages: only count, the search, the model and the waits on the
+    ranks other than 0); and the wall that rank 0's start-to-join and
+    stages do not cover. With one card, a line that says so."""
+    import torch
+
+    n_cards = torch.cuda.device_count()
     if n_cards < 2:
         log("phase 11b: one card visible: the run on several cards was not possible on this "
-            "machine (NCCL takes one rank a card)")
-        return res
+            "machine (NCCL takes one rank a card); not measured")
+        return {}
     n = min(4, n_cards)
-    d = os.path.join(work, f"devices{n}")
-    os.makedirs(d)
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=30).stdout.strip().splitlines()
+    log(f"phase 11b: {n_cards} cards: " + "; ".join(smi))
+    os.makedirs(work, exist_ok=True)
+    os.chdir(work)
     t0 = time.time()
-    proc = subprocess.run(
-        [sys.executable, "-m", "ploidyfrost_tpu_torch.cli", "pipeline", "-o", "bench5m", reads,
-         f"--devices={n}"], cwd=d, env=env, capture_output=True, text=True, timeout=900)
-    wall = time.time() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"pipeline --devices={n} returned {proc.returncode}:\n"
-                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    mine = _file_set(d)
-    if not mine or not mine <= _file_set(bench):
-        raise AssertionError(f"pipeline --devices={n} wrote {sorted(mine)}")
-    for name in sorted(mine):
-        with open(os.path.join(d, name), "rb") as f1, open(os.path.join(bench, name), "rb") as f2:
-            if f1.read() != f2.read():
-                raise AssertionError(f"pipeline --devices={n}: {name} differs from one card's")
-    ranks = [line for line in proc.stdout.splitlines() if line.startswith("rank ")]
-    if len(ranks) != n or any("K1 launches 0," in line or "search launches 0," in line
-                              for line in ranks):
-        raise AssertionError(f"rank lines {ranks}")
-    log(f"phase 11b: `pipeline --devices={n}` on bench5m: {len(mine)} files byte-identical to "
-        f"one card's, wall {wall:.3f} s (process start and {n} ranks' start included)")
-    for line in ranks:
-        log(f"phase 11b: {line}")
-    res["devices"] = n
+    make_bench5m_reads("bench5m_reads.fa")
+    samples = [os.path.basename(p) for p in make_sample_reads(".", 5_000_000)]
+    log(f"phase 11b: bench5m and multi3x5m reads generated in {time.time() - t0:.1f} s")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    starts = []
+    for _ in range(2):  # what a command pays before it can spawn ranks
+        t0 = time.time()
+        subprocess.run([sys.executable, "-c", "import torch, ploidyfrost_tpu_torch.cli; "
+                        "torch.cuda.device_count()"], env=env, check=True, timeout=300)
+        starts.append(time.time() - t0)
+    log(f"phase 11b: a Python process that imports torch and the CLI and counts the cards: "
+        f"{starts[0]:.3f} s and {starts[1]:.3f} s")
+    runs = [("pipeline", "bench5m", ["bench5m_reads.fa"], dev) for dev in (1, n, n, 1)]
+    runs += [("pipeline-multi", "multi", samples, dev) for dev in (1, n)]
+    res = {"devices": n, "runs": [], "command_start_s": starts}
+    first = {}
+    for i, (cmd, prefix, inputs, dev) in enumerate(runs):
+        d = os.path.join(work, f"run{i}")
+        os.makedirs(d)
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ploidyfrost_tpu_torch.cli", cmd, "-o", prefix,
+             *(os.path.join("..", x) for x in inputs), f"--devices={dev}"],
+            cwd=d, env=env, capture_output=True, text=True, timeout=900)
+        wall = time.time() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"{cmd} --devices={dev} returned {proc.returncode}:\n"
+                               f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        if _model_ploidy(os.path.join(d, prefix)) != 2:
+            raise AssertionError(f"{cmd} --devices={dev}: ploidy is not 2")
+        if cmd not in first:
+            first[cmd] = d
+            same = len(_file_set(d))
+        elif _same_files(d, first[cmd], f"{cmd} --devices={dev}") != len(_file_set(first[cmd])):
+            raise AssertionError(f"{cmd} --devices={dev} wrote fewer files than --devices=1")
+        ranks = [line for line in proc.stdout.splitlines() if line.startswith("rank ")]
+        row = {"cmd": cmd, "devices": dev, "wall": wall, "ranks": ranks}
+        res["runs"].append(row)
+        if dev == 1:
+            log(f"phase 11b: `{cmd} --devices=1` on {prefix}: wall {wall:.3f} s (process start "
+                f"included), {same} files")
+            continue
+        fields = [_rank_fields(line) for line in ranks]
+        if len(ranks) != n or any(f["K1 launches"] == 0 or f["search launches"] == 0
+                                  or f["EM launches"] < 9 for f in fields):
+            raise AssertionError(f"rank lines {ranks}")
+        if any("build_graph s" in f or "sites s" in f for f in fields[1:]):
+            raise AssertionError(f"a rank other than 0 built or ran the sites pass: {ranks}")
+        stages = {k: v for k, v in fields[0].items() if k.endswith(" s") and k not in (
+            "start to join s", "group init s", "route+merge s", "color_graph s", "finalize s")}
+        rest = wall - fields[0]["start to join s"] - sum(stages.values())
+        row["outside_stages_s"] = rest
+        log(f"phase 11b: `{cmd} --devices={n}` on {prefix}: {same} files byte-identical to "
+            f"`--devices=1`'s, wall {wall:.3f} s: rank 0's process start to group join "
+            f"{fields[0]['start to join s']:.3f} s, its stages {sum(stages.values()):.3f} s "
+            f"({', '.join(f'{k} {v:.3f}' for k, v in stages.items())}), the rest {rest:.3f} s "
+            "(the command's own start before it spawns the ranks, the steps no stage times, "
+            "the ranks' exit)")
+        for line in ranks:
+            log(f"phase 11b: {line}")
     return res
 
 
@@ -2451,6 +2588,9 @@ def main() -> int:
                     "match, dis, gap, out, stream), to build and time beside the NW kernel")
     ap.add_argument("--profile-multi", action="store_true",
                     help="run multi3x5m under cProfile and print its 40 largest entries")
+    ap.add_argument("--several-cards-only", action="store_true",
+                    help="run phase 11b alone: several cards against one, on a machine with "
+                    "two or more")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2472,6 +2612,10 @@ def main() -> int:
 
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}, {card_name_and_power()}")
+    if args.several_cards_only:
+        if not several_cards(os.path.join(WORK, "several_cards")):
+            return 1
+        return finish(torch)
     build_s, base_libs, probe_lib = build_kernels(sources)
     baseline_lib, baseline_search_lib = base_libs.get("k1"), base_libs.get("search")
     log(f"phase 1: kernels built in {build_s:.2f} s")
@@ -2597,6 +2741,7 @@ def main() -> int:
 
     cards = multi_card(os.path.join(WORK, "multi_card"), bench,
                        os.path.join(bench, "bench5m_reads.fa"))
+    several_cards(os.path.join(WORK, "several_cards"))
     log("phase 11: several cards passed")
     if "jax" in sys.modules or "ploidyfrost_tpu" in sys.modules:
         raise AssertionError("the port pulled in jax or ploidyfrost_tpu")
@@ -2713,6 +2858,11 @@ def main() -> int:
     }]}
     print(smi)
     print(json.dumps(kernels))
+    return finish(torch)
+
+
+def finish(torch) -> int:
+    """The last line: the device the run took place on."""
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

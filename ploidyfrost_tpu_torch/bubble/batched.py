@@ -392,18 +392,23 @@ def search_seeds(g: CDBGraph, seeds: np.ndarray, device="cuda", group=None):
     live slot count (on one device from the launch's own word, with no
     reduction). The successor table goes to the device once, as int32.
     With `group` (parallel/mesh.Group) the seeds split over the ranks
-    (parallel/sharded.build_sharded_search_step) and every rank gets all
-    the outputs."""
+    (parallel/sharded.build_sharded_search_step): rank 0 passes the
+    graph and the seeds and gets every output; every other rank passes
+    None for both, joins the search with its slice and gets None."""
     dev = resolve_device(group.device if group is not None else device)
+    if group is not None:
+        from ..parallel.sharded import build_sharded_search_step
+
+        step = build_sharded_search_step(group)
+        if group.rank != 0:
+            return step()
     seeds = np.asarray(seeds)
     if seeds.size and (seeds.min() < 0 or seeds.max() > _INT32_MAX):
         raise ValueError(f"packed seed handles in [{seeds.min()}, {seeds.max()}] do not fit int32")
     succ_node = torch.from_numpy(np.ascontiguousarray(g._succ, dtype=np.int32)).to(dev)
     seeds_t = torch.from_numpy(seeds.astype(np.int32)).to(dev)
     if group is not None:
-        from ..parallel.sharded import build_sharded_search_step
-
-        outs, width = build_sharded_search_step(group)(seeds_t, succ_node), None
+        outs, width = step(seeds_t, succ_node), None
     else:
         outs, width = _search(seeds_t, succ_node)
     status, psec, nseen, seen, cyc = outs
@@ -732,12 +737,15 @@ def find_superbubbles_device(
     g: CDBGraph, complex_size: int = 8, colors=None, device="cuda", group=None
 ) -> tuple[BubbleState, list]:
     """Drop-in replacement for superbubble.find_superbubbles: batched
-    search on `device` (or split over `group`'s ranks) + host replay.
-    Byte-identical outputs."""
+    search on `device` (or split over `group`'s ranks, called on rank 0:
+    the other ranks join with search_seeds(None, None, group=group)) +
+    host replay. Byte-identical outputs."""
     n = len(g)
     state = BubbleState(n)
     seed_list = canonical_seeds(g)
     if len(seed_list) == 0:
+        if group is not None:  # the other ranks wait in the search's broadcast
+            search_seeds(g, seed_list, device, group)
         return state, []
 
     status, psec, nseen, seen, cyc = search_seeds(g, seed_list, device, group)

@@ -344,8 +344,8 @@ def cmd_model(argv, device="cuda", group=None) -> int:
 def cmd_count(argv, device="cuda", group=None) -> int:
     """Native k-mer counting (replaces `kmc -ci1 -cs10000 -k25` +
     `kmc_tools transform histogram`, script/pipeline/2.kmc_db). With a
-    group every rank counts its slices and finalizes the same global
-    table; rank 0 writes it."""
+    group every rank counts its slices and sends its shard to rank 0,
+    which alone receives the table, writes it and prints."""
     import numpy as np
 
     from . import resolve_device
@@ -358,10 +358,11 @@ def cmd_count(argv, device="cuda", group=None) -> int:
         print("Error: no input reads", file=sys.stderr)
         return 1
     counter, _ = count_sample(opt.inputs, opt.k, dev, group=group)
+    if not is_primary(group):
+        return 0
     km, ct = counter.arrays()
-    if is_primary(group):
-        counter.write_histogram(opt.outprefix + ".hist.txt")
-        np.savez(opt.outprefix + ".kmers.npz", kmers=km, counts=ct, k=opt.k)
+    counter.write_histogram(opt.outprefix + ".hist.txt")
+    np.savez(opt.outprefix + ".kmers.npz", kmers=km, counts=ct, k=opt.k)
     print(
         f"count: {counter.total_kmers} k-mer instances, "
         f"{counter.num_unique} distinct (k={opt.k})"

@@ -829,13 +829,17 @@ def build_graph_from_reads(
     paths, k: int, min_count: int = 1, device="cuda", link_device=None, group=None
 ):
     """Count reads (over `group`'s ranks when given), threshold,
-    compact, simplify. Returns (graph, counter)."""
+    compact, simplify. Returns (graph, counter); over a group the graph
+    is None on every rank but 0, which alone receives the table."""
     from ..io.fastx import read_batches
-    from ..parallel.mesh import make_counter
+    from ..parallel.mesh import is_primary, make_counter
 
     counter = make_counter(k, device, group)
     for batch in read_batches(paths, k):
         counter.add_reads(batch)
+    if not is_primary(group):
+        counter.finalize()  # the reduction, and this rank's shard to rank 0
+        return None, counter
     km, ct = counter.arrays()
     if min_count > 1:
         km = km[ct >= min_count]

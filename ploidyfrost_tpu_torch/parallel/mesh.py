@@ -15,12 +15,16 @@ idiom is one process per device, so here:
     --device=cpu every rank runs on the CPU with gloo. The ranks of one
     host meet through a file in a fresh temporary directory, so runs
     side by side never compete for a port.
-  * Every rank runs the whole subcommand on the same inputs. The
-    counter, the superbubble search and the EM split their work over
-    the group (parallel/sharded.py); everything else is computed
-    redundantly, and only rank 0 writes (`is_primary`). The parent
-    returns rank 0's exit code, or a rank's non-zero code as soon as
-    one fails, and then stops the others.
+  * Every rank starts the same subcommand on the same inputs, and the
+    ranks split the counter, the superbubble search and the EM
+    (parallel/sharded.py). Rank 0 alone, as the JAX package's one
+    process on its mesh, receives the count table, builds the graph,
+    replays the search, runs the sites pass and writes (`is_primary`);
+    the other ranks join only those collectives and the barriers
+    (`sync`). An error that only rank 0 can see reaches the others
+    through `rank0_decides` before they wait for it. The parent returns
+    rank 0's exit code, or a rank's non-zero code as soon as one fails,
+    and then stops the others.
 
 Multi-host, with the JAX package's variables:
 
@@ -42,6 +46,7 @@ others for ever.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import multiprocessing
@@ -97,6 +102,9 @@ class Group:
     world: int
     device: torch.device
     init_s: float = 0.0  # seconds to join the group, communicator set-up included
+    # seconds from the start of this rank's process (run_ranks) to its
+    # group join; None where the caller joined in a process of its own
+    start_s: float | None = None
 
 
 def extract_devices_flag(argv: list[str]):
@@ -221,10 +229,41 @@ def init_group(plan: RankPlan, local_rank: int) -> Group:
 
 
 def is_primary(group: Group | None = None) -> bool:
-    """True on the artifact-writing rank (rank 0, or always on the
-    single-device path). Every rank computes the identical finalized
-    tables, but only the primary writes them."""
+    """True on the rank that holds the count table and the graph and
+    writes every file (rank 0, or always on the single-device path). The
+    other ranks hold only their shard and their slices, and join the
+    collectives."""
     return group is None or group.rank == 0
+
+
+def rank0_decides(group: Group | None, rc: int = 0) -> int:
+    """Rank 0's return code `rc` on every rank of `group` (one broadcast;
+    `rc` itself without a group). Rank 0 alone reads the graph and the
+    count databases, so it alone sees that one is missing or does not
+    fit: it tells the others here, before they wait for it in the next
+    collective, and every rank returns the code at once instead of at
+    the group's timeout."""
+    if group is None:
+        return rc
+    import torch.distributed as dist
+
+    t = torch.tensor([rc if group.rank == 0 else 0], dtype=torch.int64, device=group.device)
+    dist.broadcast(t, 0)
+    return int(t)
+
+
+@contextlib.contextmanager
+def rank0_checks(group: Group | None):
+    """Around rank 0's checks of its inputs, which a `rank0_decides`
+    ends: an error raised inside (a SystemExit with the reference's
+    message, a missing file) first tells the other ranks, as
+    rank0_decides(group, 1), and then propagates."""
+    try:
+        yield
+    except (Exception, SystemExit):
+        if group is not None:
+            rank0_decides(group, 1)
+        raise
 
 
 def sync(group: Group | None) -> None:
@@ -251,14 +290,16 @@ def make_counter(k: int, device="cuda", group: Group | None = None, **kw):
     return KmerCounter(k, device=device, **kw)
 
 
-def _rank_entry(plan: RankPlan, local_rank: int, target, args) -> None:
-    """A spawned rank: join the group, run target(group, *args), exit
-    with its return code. Only rank 0 prints to stdout."""
+def _rank_entry(plan: RankPlan, local_rank: int, target, args, started: float) -> None:
+    """A spawned rank, its process started at wall time `started`: join
+    the group, run target(group, *args), exit with its return code. Only
+    rank 0 prints to stdout."""
     if plan.device_type == "cpu":
         torch.set_num_threads(plan.threads)
     if plan.offset + local_rank != 0:
         sys.stdout = open(os.devnull, "w")
     group = init_group(plan, local_rank)
+    group = dataclasses.replace(group, start_s=time.time() - started)
     rc = target(group, *args)
     import torch.distributed as dist
 
@@ -280,14 +321,13 @@ def run_ranks(plan: RankPlan, target, args=(), timeout: float | None = None) -> 
         plan = dataclasses.replace(
             plan, init_method="file://" + os.path.join(tmp, "rendezvous")
         )
-    procs = [
-        ctx.Process(target=_rank_entry, args=(plan, r, target, args))
-        for r in range(plan.local)
-    ]
+    procs = []
     deadline = None if timeout is None else time.monotonic() + timeout
     try:
-        for p in procs:
-            p.start()
+        for r in range(plan.local):
+            procs.append(ctx.Process(target=_rank_entry,
+                                     args=(plan, r, target, args, time.time())))
+            procs[-1].start()
         while True:
             failed = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
             if failed:

@@ -4,7 +4,10 @@ process group (one rank per device, parallel/mesh.py).
 
 The reference's only parallelism is pthreads and mutexes in one address
 space (src/CDBG.cpp:1726-1777). Here, as in the JAX package, the work is
-bulk-synchronous with no locks:
+bulk-synchronous with no locks, and the JAX package's single-process
+mesh is the model of who holds what: the table stays split over the
+devices, and one host (rank 0's) receives it shard by shard, builds,
+replays and writes.
 
   * Counting (`ShardedKmerCounter`). Every rank reads the same batches
     and runs K1 (kmer/extract.py) on its contiguous row slice of each
@@ -13,18 +16,24 @@ bulk-synchronous with no locks:
     with one `all_to_all_single` of the per-destination counts and one of
     the keys (uneven splits), and merges what it receives into its own
     table with the single-device sort-collapse (kmer/count.py:_collapse).
-    Each key lives on exactly one rank, so the histogram and the instance
-    count are one int64 `all_reduce`, and `arrays()` gathers the ragged
-    tables (lengths first, then a padded `all_gather`) and sorts once.
+    Each key lives on exactly one rank, so the histogram, the instance
+    count and every shard's length are one int64 `all_reduce`. Then each
+    rank sends its shard (keys, then counts) to rank 0 with point-to-point
+    `send`, in rank order; rank 0 receives each into one buffer sized for
+    the largest shard, copies it to its host before the next arrives and
+    merges the sorted runs there: the JAX `arrays()` contract
+    (ploidyfrost_tpu/parallel/sharded.py:381-413), one shard in flight,
+    and no device ever holds the global table. `arrays()` raises on the
+    other ranks.
   * EM (`build_sharded_em_step`, `build_sharded_ll_step`, and
     model/gmm._em_iterate_group). Each rank runs one pass over its slice
     of the allele frequencies in float64 (on a card the pass entry of
     the EM kernel), one `all_reduce` of the pass's 2g + 1 sums, then the
     update and its rejection guard on every rank.
-  * Superbubble search (`build_sharded_search_step`). The seeds split
-    into equal slices; each rank searches its own; `all_gather` brings
-    the five outputs to every rank, whose host replay then runs as on one
-    device.
+  * Superbubble search (`build_sharded_search_step`). Rank 0 broadcasts
+    the seeds and the successor table; the seeds split into equal
+    slices; each rank searches its own and sends the five outputs to
+    rank 0, whose host alone replays.
 
 What the JAX version has and this one drops: the 2-D (data, shard) mesh
 (`make_mesh`, `balanced_mesh`), the two all_to_all hops over its axes,
@@ -91,23 +100,17 @@ def all_sum(group: Group, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _all_gather_cat(group: Group, x: torch.Tensor) -> torch.Tensor:
-    """Every rank's x (one shape on every rank), concatenated in rank
-    order on dim 0."""
-    parts = [torch.empty_like(x) for _ in range(group.world)]
-    dist.all_gather(parts, x.contiguous())
-    return torch.cat(parts)
-
-
 class ShardedKmerCounter:
     """KmerCounter-compatible streaming counter over a process group.
 
     Same surface as kmer.count.KmerCounter (add_reads / arrays /
     histogram / write_histogram / total_kmers / num_unique), so the
-    pipeline entry points take either (mesh.make_counter). Every rank
-    must make the same calls with the same batches: the flushes and the
-    finalization are collectives. The table depends only on the k-mer
-    multiset, not on the group's size.
+    pipeline entry points take either (mesh.make_counter); `arrays()`
+    answers on rank 0 alone. Every rank must make the same calls with
+    the same batches, and enter the finalization (`finalize`, or any
+    view) at the same point: the flushes and the finalization are
+    collectives. The table depends only on the k-mer multiset, not on
+    the group's size.
     """
 
     def __init__(
@@ -134,9 +137,12 @@ class ShardedKmerCounter:
         self._slots = 0
         self._n_valid_dev = torch.zeros((), dtype=torch.int64, device=self.device)
         self._total_local = 0
-        self._finalized = None  # (km, ct, hist, total) until the next add_reads
+        self._finalized = None  # finalize's result until the next add_reads
         # (key bytes this rank sent, host seconds of route + merge) a flush
         self.flush_log: list[tuple[int, float]] = []
+        # host seconds of the last finalize after its flush: the reduction
+        # and the shards' way to rank 0's host, merge included
+        self.finalize_s = 0.0
 
     # -- ingestion -------------------------------------------------------
 
@@ -197,51 +203,80 @@ class ShardedKmerCounter:
 
     # -- finalization / views ---------------------------------------------
 
-    def _finalize(self):
-        """Flush, reduce the histogram and the instance count, and gather
-        the global sorted table, once until the next add_reads: every
-        rank must enter the collectives equally often."""
+    def finalize(self):
+        """Flush, reduce the histogram, the instance count and the shard
+        lengths, and bring the shards to rank 0's host (`_shards_to_rank0`),
+        once until the next add_reads: every rank must enter the
+        collectives equally often, so the pipeline's ranks all call this
+        where counting ends, and rank 0 alone may then ask for the table.
+        Returns (kmers, counts, hist, total, distinct), the table None on
+        every rank but 0."""
         if self._finalized is not None:
             return self._finalized
         self.flush()
-        cm = self.counter_max
+        t0 = time.perf_counter()
+        cm, world, rank = self.counter_max, self.group.world, self.group.rank
         hist = torch.bincount(self._tct.clamp(0, cm), minlength=cm + 1)[: cm + 1]
-        total = torch.tensor([self._total_local], dtype=torch.int64, device=self.device)
-        red = all_sum(self.group, torch.cat([hist, total]))
-        n = torch.tensor([self._tkm.numel()], dtype=torch.int64, device=self.device)
-        n_max = int(_all_gather_cat(self.group, n).max())
-        pk = torch.full((n_max,), SENTINEL, dtype=torch.int64, device=self.device)
-        pc = torch.zeros(n_max, dtype=torch.int64, device=self.device)
-        pk[: self._tkm.numel()] = self._tkm
-        pc[: self._tct.numel()] = self._tct
-        all_km = _all_gather_cat(self.group, pk)
-        all_ct = _all_gather_cat(self.group, pc)
-        live = all_km != SENTINEL
-        km, order = torch.sort(all_km[live])
-        ct = all_ct[live][order]
-        hist_np = red[:-1].cpu().numpy()
+        # the instance count, then one slot a rank for its shard's length
+        head = torch.zeros(world + 1, dtype=torch.int64, device=self.device)
+        head[0] = self._total_local
+        head[1 + rank] = self._tkm.numel()
+        red = all_sum(self.group, torch.cat([hist, head])).cpu().numpy()
+        hist_np, total, lens = red[: cm + 1], int(red[cm + 1]), red[cm + 2 :]
         hist_np[0] = 0
-        self._finalized = (
-            km.cpu().numpy().view(np.uint64),
-            ct.cpu().numpy(),
-            hist_np,
-            int(red[-1]),
-        )
+        table = self._shards_to_rank0(lens)
+        self._finalized = (*table, hist_np, total, int(lens.sum()))
+        self.finalize_s = time.perf_counter() - t0
         return self._finalized
+
+    def _shards_to_rank0(self, lens: np.ndarray):
+        """Every rank's shard to rank 0's host, rank by rank (`lens`: the
+        shards' lengths, known on every rank, so an empty shard is never
+        sent). Rank 0 receives keys and then counts into one device
+        buffer of the largest shard's length and copies each to its host
+        before the next arrives; returns the merged (kmers uint64, counts)
+        there, (None, None) on the other ranks."""
+        if self.group.rank != 0:
+            if self._tkm.numel():
+                dist.send(self._tkm, 0)
+                dist.send(self._tct, 0)
+            return None, None
+        kms, cts = [self._tkm.cpu().numpy()], [self._tct.cpu().numpy()]
+        buf = torch.empty(int(lens[1:].max(initial=0)), dtype=torch.int64, device=self.device)
+        for r, n in enumerate(lens.tolist()):
+            if r == 0 or n == 0:
+                continue
+            for host in (kms, cts):
+                dist.recv(buf[:n], src=r)
+                host.append(buf[:n].to("cpu", copy=True).numpy())
+        del buf
+        km, ct = np.concatenate(kms), np.concatenate(cts)
+        # each shard is sorted and the shards are disjoint (keys are owned
+        # by hash), so a stable argsort merges the runs (numpy's timsort).
+        # Keys are < 2^62 for k <= 31: their int64 and uint64 orders agree.
+        order = np.argsort(km, kind="stable")
+        return km[order].view(np.uint64), ct[order]
 
     @property
     def total_kmers(self) -> int:
         """Total (valid) k-mer instances over all ranks."""
-        return self._finalize()[3]
+        return self.finalize()[3]
 
     @property
     def num_unique(self) -> int:
-        return len(self._finalize()[0])
+        """Distinct k-mers over all ranks: the sum of the shards' lengths,
+        on every rank."""
+        return self.finalize()[4]
 
     def arrays(self):
         """(sorted unique canonical k-mers uint64, saturated counts
-        int64) of the whole table as host numpy arrays, on every rank."""
-        km, ct, _, _ = self._finalize()
+        int64) of the whole table as host numpy arrays: on rank 0 alone,
+        the one host that receives the shards."""
+        if self.group.rank != 0:
+            raise RuntimeError(
+                f"ShardedKmerCounter.arrays() on rank {self.group.rank}: the table is "
+                "gathered on rank 0's host alone; this rank holds only its shard")
+        km, ct, _, _, _ = self.finalize()
         return km, ct
 
     def histogram(self, max_cov: int | None = None) -> np.ndarray:
@@ -249,7 +284,7 @@ class ShardedKmerCounter:
         max_cov, c in 1..max_cov (KmerCounter.histogram's meaning)."""
         if max_cov is None:
             max_cov = self.counter_max
-        full = self._finalize()[2]
+        full = self.finalize()[2]
         if max_cov >= len(full) - 1:
             return np.concatenate([full, np.zeros(max_cov + 1 - len(full), np.int64)])
         hist = full[: max_cov + 1].copy()
@@ -268,11 +303,13 @@ def sharded_count(group: Group, k: int, code_batches, **kw):
     """Count canonical k-mers of `code_batches` over the group (see
     ShardedKmerCounter). Returns (kmers sorted uint64, counts int64,
     hist int64[256] with counts above 255 in the last bin, n_instances),
-    the JAX package's sharded_count result."""
+    the JAX package's sharded_count result; the kmers and counts are
+    None on every rank but 0."""
     counter = ShardedKmerCounter(group, k, **kw)
     for b in code_batches:
         counter.add_reads(b)
-    km, ct = counter.arrays()
+    counter.finalize()
+    km, ct = counter.arrays() if group.rank == 0 else (None, None)
     return km, ct, counter.histogram(255), counter.total_kmers
 
 
@@ -307,22 +344,47 @@ def build_sharded_ll_step(group: Group):
 
 
 def build_sharded_search_step(group: Group):
-    """Superbubble search over the group: (seeds [S] int32, succ_node
-    [n, 2, 4] int32, both on this rank's device) -> the five outputs of
-    bubble/batched.search_batched for all S seeds, on every rank.
+    """Superbubble search over the group. Rank 0 calls step(seeds [S]
+    int32, succ_node [n, 2, 4] int32, both on its device) and gets the
+    five outputs of bubble/batched.search_batched for all S seeds; every
+    other rank calls step() and gets None.
 
+    Rank 0 broadcasts S and n, then the seeds and the successor table.
     Seeds are independent (the search reads only the adjacency,
     src/CDBG.cpp:2643-2823), so they split into ceil(S / world) a rank,
     the last slice padded with the last seed; every rank searches its
-    slice with search_batched (one kernel launch on a card), and the host
-    replay then runs unchanged on every rank."""
+    slice with search_batched (one kernel launch on a card) and sends the
+    five outputs to rank 0, which receives them rank by rank into their
+    rows. Rank 0's host alone replays."""
     from ..bubble.batched import search_batched
 
-    def step(seeds, succ_node):
-        n = seeds.numel()
-        per = -(-n // group.world)
-        pad = seeds[-1:].expand(per * group.world - n)
+    def step(seeds=None, succ_node=None):
+        primary = group.rank == 0
+        dims = [seeds.numel(), succ_node.shape[0]] if primary else [0, 0]
+        dims = torch.tensor(dims, dtype=torch.int64, device=group.device)
+        dist.broadcast(dims, 0)
+        S, n = dims.tolist()
+        if S == 0:
+            return search_batched(seeds, succ_node) if primary else None
+        if not primary:
+            seeds = torch.empty(S, dtype=torch.int32, device=group.device)
+            succ_node = torch.empty((n, 2, 4), dtype=torch.int32, device=group.device)
+        dist.broadcast(seeds, 0)
+        dist.broadcast(succ_node, 0)
+        per = -(-S // group.world)
+        pad = seeds[-1:].expand(per * group.world - S)
         mine = torch.cat([seeds, pad])[group.rank * per : (group.rank + 1) * per]
-        return [_all_gather_cat(group, x)[:n] for x in search_batched(mine, succ_node)]
+        outs = search_batched(mine, succ_node)
+        if not primary:
+            for x in outs:
+                dist.send(x.contiguous(), 0)
+            return None
+        full = [x.new_empty((per * group.world, *x.shape[1:])) for x in outs]
+        for f, x in zip(full, outs):
+            f[:per] = x
+        for r in range(1, group.world):
+            for f in full:
+                dist.recv(f[r * per : (r + 1) * per], src=r)
+        return [f[:S] for f in full]
 
     return step

@@ -67,14 +67,14 @@ def _trace(trace_dir: str, name: str):
 
 
 @contextlib.contextmanager
-def maybe_trace(name: str, enabled: bool = True):
+def maybe_trace(name: str):
     """torch.profiler trace for one pipeline phase when
-    PLOIDYFROST_TRACE=<dir> is set and `enabled`; free otherwise. The
-    analysis entry points wrap their phases with this — the
-    reference-parity log lines stay untouched — and pass enabled=False
-    on every rank of a group but rank 0, which alone writes the file."""
+    PLOIDYFROST_TRACE=<dir> is set; free otherwise. The analysis entry
+    points wrap their phases with this — the reference-parity log lines
+    stay untouched. On a group only rank 0 runs those phases, and so
+    writes the file."""
     trace_dir = os.environ.get("PLOIDYFROST_TRACE")
-    if not trace_dir or not enabled:
+    if not trace_dir:
         yield
         return
     with _trace(trace_dir, name):

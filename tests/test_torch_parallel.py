@@ -1,9 +1,9 @@
 """The port's sharded stages on the CPU with gloo (parallel/sharded.py).
 
-Groups of 2, 3 and 4 ranks, one process each, run the sharded counter,
-the sharded EM and the sharded superbubble search on seeded inputs (at 3
-ranks the seeds, rows and frequencies split unevenly); rank 0
-saves what they computed and the tests hold it against the
+Groups of 1, 2, 3 and 4 ranks, one process each, run the sharded
+counter, the sharded EM and the sharded superbubble search on seeded
+inputs (at 3 ranks the seeds, rows and frequencies split unevenly);
+rank 0 saves what they computed and the tests hold it against the
 single-device functions of the port and against the JAX package's mesh
 versions on the 8 virtual CPU devices of tests/conftest.py:
 
@@ -15,7 +15,13 @@ versions on the 8 virtual CPU devices of tests/conftest.py:
     on make_mesh(4, 2);
   * the EM loop and one EM step within 1e-12 relative of the
     single-device _em_iterate and of the JAX build_sharded_em_step;
-  * the search over the ranks equal to search_seeds on a 100 kb graph.
+  * the search over the ranks equal to search_seeds on a 100 kb graph,
+    the graph and the seeds on rank 0 alone;
+  * the table reaches rank 0's host alone, shard by shard: a spy on
+    torch.distributed sees no gather during the finalization, one
+    send of keys and one of counts a non-empty shard, and rank 0
+    receiving them rank by rank into one buffer of the largest shard's
+    length; arrays() raises on every other rank.
 
 Every rank holds torch to one thread; each group has a process-group
 timeout and the parent waits a bounded time for it.
@@ -64,18 +70,76 @@ def _em_init(g):
             np.full(g, 0.01))
 
 
+class _CommSpy:
+    """While installed in this rank's torch.distributed: records every
+    send and recv (peer, elements, the storage's address and bytes) and
+    refuses every gather and non-blocking point-to-point call."""
+
+    REFUSED = ("all_gather", "all_gather_into_tensor", "all_gather_object", "gather",
+               "isend", "irecv")
+
+    def __init__(self):
+        self.calls = []
+
+    def _record(self, kind, real):
+        def call(tensor, *args, **kw):
+            peer = args[0] if args else kw.get("dst", kw.get("src"))
+            st = tensor.untyped_storage()
+            self.calls.append((kind, peer, tensor.numel(), st.data_ptr(), st.nbytes()))
+            return real(tensor, *args, **kw)
+        return call
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self._saved = {n: getattr(dist, n) for n in ("send", "recv", *self.REFUSED)}
+        dist.send = self._record(0, self._saved["send"])
+        dist.recv = self._record(1, self._saved["recv"])
+        for name in self.REFUSED:
+            def refuse(*args, _name=name, **kw):
+                raise AssertionError(f"{_name} called while the table is finalized")
+            setattr(dist, name, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for name, fn in self._saved.items():
+            setattr(dist, name, fn)
+
+
 def _rank_job(group, work):
-    """Runs on every rank of a group; rank 0 saves the results."""
+    """Runs on every rank of a group. Rank 0 saves the results; every
+    rank saves what its finalization sent or received and whether
+    arrays() refused it."""
     from ploidyfrost_tpu_torch.bubble.batched import (
         canonical_seeds, find_superbubbles_device, search_seeds)
     from ploidyfrost_tpu_torch.graph.cdbg import CDBGraph
     from ploidyfrost_tpu_torch.model.gmm import GmmModel
     from ploidyfrost_tpu_torch.parallel.sharded import (
-        build_sharded_em_step, build_sharded_ll_step, rank_rows, sharded_count)
+        ShardedKmerCounter, build_sharded_em_step, build_sharded_ll_step, rank_rows,
+        sharded_count)
 
     out = {}
     km, ct, hist, n = sharded_count(group, K, _count_batches(), buffer_capacity=20_000)
-    out.update(km=km, ct=ct, hist=hist, n=n)
+    out.update(hist=hist, n=n)
+    if group.rank == 0:
+        out.update(km=km, ct=ct)
+
+    counter = ShardedKmerCounter(group, K, buffer_capacity=20_000)
+    for b in _count_batches():
+        counter.add_reads(b)
+    counter.flush()
+    with _CommSpy() as spy:
+        counter.finalize()
+    mine = {"calls": np.array(spy.calls, dtype=np.int64).reshape(-1, 5),
+            "shard": counter._tkm.numel(), "distinct": counter.num_unique, "refused": False}
+    if group.rank != 0:
+        try:
+            counter.arrays()
+        except RuntimeError as e:
+            mine["refused"] = "rank 0's host alone" in str(e)
+    np.savez(os.path.join(work, f"world{group.world}_rank{group.rank}.npz"), **mine)
 
     af = _frequencies()
     model = GmmModel("cpu", group)
@@ -91,13 +155,16 @@ def _rank_job(group, work):
     out["step"] = np.concatenate([v1.numpy(), w1.numpy(), [float(ll1)]])
     out["ll0"] = float(build_sharded_ll_step(group)(mine, means, w, v))
 
+    if group.rank != 0:  # the graph and the seeds are rank 0's
+        for _ in range(2):
+            assert search_seeds(None, None, "cpu", group) is None
+        return 0
     g = CDBGraph.from_gfa(os.path.join(work, "graph.gfa"))
     res = search_seeds(g, canonical_seeds(g), "cpu", group)
     out.update({f"search{i}": a for i, a in enumerate(res)})
     state, bubbles = find_superbubbles_device(g, 8, device="cpu", group=group)
     out.update(flags=state.flags, plus=state.plus, minus=state.minus, bubbles=len(bubbles))
-    if group.rank == 0:
-        np.savez(os.path.join(work, f"world{group.world}.npz"), **out)
+    np.savez(os.path.join(work, f"world{group.world}.npz"), **out)
     return 0
 
 
@@ -121,16 +188,20 @@ def work(tmp_path_factory):
     return d
 
 
-@pytest.fixture(scope="module", params=[2, 3, 4], ids=lambda w: f"world{w}")
+@pytest.fixture(scope="module", params=[1, 2, 3, 4], ids=lambda w: f"world{w}")
 def ranks(request, work):
-    """What a gloo group of `world` CPU ranks computed in _rank_job."""
+    """What a gloo group of `world` CPU ranks computed in _rank_job:
+    rank 0's results, and under "ranks" every rank's finalization."""
     from ploidyfrost_tpu_torch.parallel.mesh import RankPlan, run_ranks
 
     world = request.param
     plan = RankPlan(local=world, world=world, offset=0, device_type="cpu", init_method=None,
                     timeout_s=GROUP_TIMEOUT_S, threads=1)
     assert run_ranks(plan, _rank_job, (work,), timeout=WAIT_S) == 0
-    return dict(np.load(os.path.join(work, f"world{world}.npz")))
+    out = dict(np.load(os.path.join(work, f"world{world}.npz")))
+    out["ranks"] = [dict(np.load(os.path.join(work, f"world{world}_rank{r}.npz")))
+                    for r in range(world)]
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -234,3 +305,30 @@ def test_sharded_search_matches_search_seeds(ranks, work):
     np.testing.assert_array_equal(ranks["plus"], state.plus)
     np.testing.assert_array_equal(ranks["minus"], state.minus)
     assert int(ranks["bubbles"]) == len(bubbles) > 0
+
+
+def test_table_reaches_rank0_one_shard_at_a_time(ranks, single_count):
+    """No gather during the finalization (the spy refuses them); every
+    non-empty shard is sent to rank 0 as its keys and then its counts;
+    rank 0 receives them rank by rank, each into one buffer no longer
+    than the largest shard, so no device holds more than its shard and
+    that buffer; num_unique is the sum of the shards on every rank."""
+    rows = ranks["ranks"]
+    world = len(rows)
+    lens = [int(r["shard"]) for r in rows]
+    distinct = len(single_count[0])
+    assert sum(lens) == distinct
+    assert all(int(r["distinct"]) == distinct for r in rows)
+    SEND, RECV = 0, 1
+    for r in range(1, world):
+        calls = rows[r]["calls"]
+        assert calls[:, 0].tolist() == [SEND, SEND] and calls[:, 1].tolist() == [0, 0]
+        assert calls[:, 2].tolist() == [lens[r]] * 2
+        assert bool(rows[r]["refused"])
+    recv = rows[0]["calls"]
+    want = [(src, lens[src]) for src in range(1, world) for _ in range(2)]
+    assert [(int(c[1]), int(c[2])) for c in recv] == want
+    assert (recv[:, 0] == RECV).all()
+    if world > 1:
+        assert len(set(recv[:, 3].tolist())) == 1  # one buffer for every shard
+        assert int(recv[0, 4]) == 8 * max(lens[1:]) < 8 * distinct
