@@ -169,8 +169,25 @@ Phases (any failure exits non-zero):
      seconds, the ranks other than 0 with no graph and no sites pass),
      and the wall that rank 0's start-to-join and stages do not cover;
      with one card, one line that says the run on several cards was not
-     possible here. `--several-cards-only` runs (b) alone, for a call on
-     several cards.
+     possible here; (c) with four or more cards, the multi-host entry
+     point as two hosts run it: two `python -m ploidyfrost_tpu_torch.cli
+     ... --devices=4` processes, CUDA_VISIBLE_DEVICES 0,1 and 2,3,
+     PLOIDYFROST_COORDINATOR on a free local port, one NCCL group of
+     four ranks, process 1 started first in an empty directory of its
+     own: `pipeline` on bench5m and `pipeline-multi` on multi3x5m, every
+     file byte-identical to (b)'s `--devices=1` files, ploidy 2, four
+     rank lines with K1, search and EM launches (EM at least nine),
+     process 1's directory empty, both walls beside (b)'s, every rank's
+     start-to-join and peak device MiB, rank 0's finalize (its `recv`s
+     across the process boundary) and the NCCL transports named in
+     NCCL's INFO logs; then `pipeline` again with PLOIDYFROST_TIMEOUT=120
+     and process 1 in a session of its own, killed whole (SIGKILL to its
+     process group) once rank 0 has printed its cutoffs: process 0 must
+     exit non-zero within 180 s of the kill, and no process of either
+     side may be left (by pid and by nvidia-smi --query-compute-apps);
+     with fewer than four cards, one line that says so.
+     `--several-cards-only` runs (b) and (c) alone, for a call on four
+     cards.
 
 Phases 1-10 run on one card (PLOIDYFROST_DEVICES=1 for the CLI calls),
 whatever the machine holds. All five native host libraries must load.
@@ -2465,6 +2482,8 @@ def several_cards(work: str) -> dict:
     if n_cards < 2:
         log("phase 11b: one card visible: the run on several cards was not possible on this "
             "machine (NCCL takes one rank a card); not measured")
+        log("phase 11c: one card visible: the run in two processes of two cards each was not "
+            "possible on this machine; not measured")
         return {}
     n = min(4, n_cards)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2533,6 +2552,281 @@ def several_cards(work: str) -> dict:
             "the ranks' exit)")
         for line in ranks:
             log(f"phase 11b: {line}")
+    res["multi_host"] = multi_host(work, first, res["runs"], samples)
+    return res
+
+
+def _descendants(pid: int) -> set[int]:
+    """Every live process below `pid` (from /proc; zombies left out)."""
+    parent = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if fields[0] != "Z":
+            parent[int(d)] = int(fields[1])
+    out, todo = set(), [pid]
+    while todo:
+        p = todo.pop()
+        kids = [c for c, pp in parent.items() if pp == p]
+        out.update(kids)
+        todo += kids
+    return out
+
+
+def _alive(pids) -> set[int]:
+    out = set()
+    for p in pids:
+        try:
+            with open(f"/proc/{p}/stat") as f:
+                if f.read().rsplit(")", 1)[1].split()[0] != "Z":
+                    out.add(p)
+        except OSError:
+            pass
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _host_env(pid: int, port: int, **extra) -> dict:
+    """The environment of process `pid` of two on this host: its two
+    cards through CUDA_VISIBLE_DEVICES, the coordinator, and no
+    PLOIDYFROST_LOCAL_DEVICES (each process counts the cards it sees)."""
+    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="0,1" if pid == 0 else "2,3",
+               PLOIDYFROST_COORDINATOR=f"127.0.0.1:{port}", PLOIDYFROST_NUM_PROCESSES="2",
+               PLOIDYFROST_PROCESS_ID=str(pid), **extra)
+    for name in ("PLOIDYFROST_LOCAL_DEVICES", "PLOIDYFROST_DEVICES"):
+        env.pop(name, None)
+    return env
+
+
+def _nvidia_smi_pids() -> set[int]:
+    """The pids nvidia-smi lists as compute processes on the cards (none
+    where it cannot list them, which the caller logs)."""
+    smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=30)
+    if smi.returncode != 0:
+        log(f"phase 11c: nvidia-smi --query-compute-apps failed: {smi.stderr.strip()}")
+        return set()
+    return {int(x) for x in smi.stdout.split() if x.strip().isdigit()}
+
+
+def multi_host(work: str, single: dict, runs_11b: list, samples: list) -> dict:
+    """Phase 11c, with four or more cards: the multi-host entry point as
+    two hosts run it, two processes of two cards each on this machine
+    (CUDA_VISIBLE_DEVICES 0,1 and 2,3) joined through
+    PLOIDYFROST_COORDINATOR into one NCCL group of four ranks. Process 1
+    starts first and runs in an empty directory of its own, its inputs
+    given by absolute path. `pipeline` on bench5m and `pipeline-multi` on
+    multi3x5m must write the files of 11b's `--devices=1` runs (`single`:
+    command -> directory) byte for byte, ploidy 2, four rank lines with
+    K1, search and EM launches (EM at least nine), nothing in process
+    1's directory, exit code 0 from both. Then a host dies mid-run:
+    process 1's whole session is killed once rank 0 has printed its
+    cutoffs (past every all_to_all of the count and the shards' way to
+    rank 0), and process 0 must exit non-zero within PLOIDYFROST_TIMEOUT
+    (120 s) + 60 s, leaving no rank of either process. With fewer than
+    four cards, a line that says so."""
+    import signal
+    import threading
+
+    import torch
+
+    if torch.cuda.device_count() < 4:
+        log(f"phase 11c: {torch.cuda.device_count()} cards visible: the run in two processes "
+            "of two cards each was not possible on this machine; not measured")
+        return {}
+    res = {"runs": []}
+    jobs = [("pipeline", "bench5m", ["bench5m_reads.fa"]), ("pipeline-multi", "multi", samples)]
+    for cmd, prefix, inputs in jobs:
+        dirs = [os.path.join(work, f"host_{cmd}_p{pid}") for pid in (0, 1)]
+        for d in dirs:
+            os.makedirs(d)
+        # process 0 names its inputs as 11b's runs did (the sample names
+        # land in multi.colors.npz), process 1 by absolute path
+        argv = {pid: [sys.executable, "-m", "ploidyfrost_tpu_torch.cli", cmd, "-o", prefix,
+                      *(os.path.join(work if pid else "..", x) for x in inputs), "--devices=4"]
+                for pid in (0, 1)}
+        port = _free_port()
+        nccl_logs = os.path.join(work, f"nccl_{cmd}")
+        os.makedirs(nccl_logs)
+        nccl = {"NCCL_DEBUG": "INFO", "NCCL_DEBUG_FILE": os.path.join(nccl_logs, "%h.%p.log")}
+        logs = {pid: [open(os.path.join(work, f"host_{cmd}_p{pid}.{x}"), "w+") for x in
+                      ("out", "err")] for pid in (0, 1)}  # outside the processes' directories
+        t0 = time.time()
+        procs = {}
+        try:
+            for pid in (1, 0):  # process 1 first: it waits for rank 0's store
+                procs[pid] = subprocess.Popen(argv[pid], cwd=dirs[pid],
+                                              env=_host_env(pid, port, **nccl),
+                                              stdout=logs[pid][0], stderr=logs[pid][1], text=True)
+                if pid == 1:
+                    time.sleep(1.0)
+            for pid in (0, 1):
+                procs[pid].wait(timeout=900)
+        finally:
+            for proc in procs.values():
+                proc.kill()
+                proc.wait()
+        wall = time.time() - t0
+        outs = {}
+        for pid, files in logs.items():
+            outs[pid] = []
+            for f in files:
+                f.seek(0)
+                outs[pid].append(f.read())
+                f.close()
+        for pid in (0, 1):
+            if procs[pid].returncode != 0:
+                raise RuntimeError(
+                    f"phase 11c: {cmd} process {pid} returned {procs[pid].returncode}:\n"
+                    f"{outs[pid][0][-3000:]}\n{outs[pid][1][-3000:]}")
+        if os.listdir(dirs[1]):
+            raise AssertionError(f"phase 11c: process 1 wrote {os.listdir(dirs[1])}")
+        if _model_ploidy(os.path.join(dirs[0], prefix)) != 2:
+            raise AssertionError(f"phase 11c: {cmd}: ploidy is not 2")
+        same = _same_files(dirs[0], single[cmd], f"phase 11c {cmd}")
+        if same != len(_file_set(single[cmd])):
+            raise AssertionError(f"phase 11c: {cmd} wrote fewer files than --devices=1")
+        ranks = [line for line in outs[0][0].splitlines() if line.startswith("rank ")]
+        fields = [_rank_fields(line) for line in ranks]
+        if len(ranks) != 4 or any(f["K1 launches"] == 0 or f["search launches"] == 0
+                                  or f["EM launches"] < 9 for f in fields):
+            raise AssertionError(f"phase 11c: rank lines {ranks}")
+        if any(line.startswith("rank ") for line in outs[1][0].splitlines()):
+            raise AssertionError("phase 11c: process 1 printed rank lines")
+        via = {}  # e.g. "Channel 00/0 : 1[1] -> 2[0] via SHM/direct/direct"
+        for name in os.listdir(nccl_logs):
+            with open(os.path.join(nccl_logs, name), errors="replace") as f:
+                for line in f:
+                    if " via " in line:
+                        kind = line.split(" via ", 1)[1].split()[0]
+                        via[kind] = via.get(kind, 0) + 1
+        one = [r["wall"] for r in runs_11b if r["cmd"] == cmd and r["devices"] == 1]
+        four = [r["wall"] for r in runs_11b if r["cmd"] == cmd and r["devices"] != 1]
+        row = {"cmd": cmd, "wall": wall, "ranks": ranks, "nccl_via": via,
+               "walls_11b_one": one, "walls_11b_several": four}
+        res["runs"].append(row)
+        log(f"phase 11c: `{cmd} --devices=4` on {prefix} in two processes of two cards each: "
+            f"{same} files byte-identical to `--devices=1`'s, ploidy 2, process 1's directory "
+            f"empty, wall {wall:.3f} s (from process 1's start to both exits; in this call 11b's "
+            f"one-process `--devices=4`: {', '.join(f'{w:.3f}' for w in four)} s, "
+            f"`--devices=1`: {', '.join(f'{w:.3f}' for w in one)} s)")
+        log(f"phase 11c: {cmd}: rank 0's finalize (the shards of ranks 1-3 received, ranks 2-3 "
+            f"from process 1) {fields[0]['finalize s']:.4f} s; start to join "
+            + ", ".join(f"rank {r} {f['start to join s']:.3f} s" for r, f in enumerate(fields))
+            + "; peak device MiB "
+            + ", ".join(f"rank {r} {f.get('peak device MiB', float('nan')):.1f}"
+                        for r, f in enumerate(fields)))
+        log(f"phase 11c: {cmd}: NCCL transports named in its INFO lines: "
+            + (", ".join(f"{k} x{v}" for k, v in sorted(via.items())) or "none logged"))
+        for line in ranks:
+            log(f"phase 11c: {line}")
+
+    # a host dies mid-run
+    dirs = [os.path.join(work, f"host_dead_p{pid}") for pid in (0, 1)]
+    for d in dirs:
+        os.makedirs(d)
+    timeout = 120
+    argv = [sys.executable, "-m", "ploidyfrost_tpu_torch.cli", "pipeline", "-o", "dead",
+            os.path.join(work, "bench5m_reads.fa"), "--devices=4"]
+    port = _free_port()
+    smi_before = _nvidia_smi_pids()
+    errs = [open(os.path.join(work, f"host_dead_p{pid}.err"), "w+") for pid in (0, 1)]
+    procs = {}
+    seen: set[int] = set()
+    lines: list[str] = []
+    past = threading.Event()
+    try:
+        for pid in (1, 0):
+            procs[pid] = subprocess.Popen(argv, cwd=dirs[pid],
+                                          env=_host_env(pid, port, PLOIDYFROST_TIMEOUT=str(timeout)),
+                                          stdout=subprocess.PIPE, stderr=errs[pid], text=True,
+                                          start_new_session=(pid == 1))
+            if pid == 1:
+                time.sleep(1.0)
+
+        def read_rank0():
+            for line in procs[0].stdout:
+                lines.append(line)
+                if line.startswith("pipeline: cutoffs"):
+                    past.set()
+            past.set()
+
+        reader = threading.Thread(target=read_rank0, daemon=True)
+        reader.start()
+        while not past.wait(0.5):
+            for proc in procs.values():
+                seen |= _descendants(proc.pid)
+        if procs[0].poll() is not None or procs[1].poll() is not None:
+            raise RuntimeError("phase 11c: a process ended before rank 0 printed its cutoffs:\n"
+                               + "".join(lines[-40:]))
+        for proc in procs.values():
+            seen |= _descendants(proc.pid)
+        ranks_pids = set(seen)
+        smi_during = _nvidia_smi_pids()
+        t_kill = time.time()
+        os.killpg(procs[1].pid, signal.SIGKILL)
+        try:
+            rc0 = procs[0].wait(timeout=timeout + 120)
+        except subprocess.TimeoutExpired:
+            rc0 = None
+        ended_s = time.time() - t_kill
+        procs[1].wait(timeout=30)
+        deadline = time.time() + 20
+        while _alive(ranks_pids) and time.time() < deadline:
+            time.sleep(0.5)
+        left = _alive(ranks_pids)
+        smi_after = _nvidia_smi_pids()
+        reader.join(10)
+    finally:
+        for pid, proc in procs.items():
+            if proc.poll() is None:
+                if pid == 1:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                proc.kill()
+            proc.wait()
+        for f in errs:
+            f.flush()
+    errs[0].seek(0)
+    err0 = errs[0].read()
+    for f in errs:
+        f.close()
+    cause = [ln.strip() for ln in err0.splitlines()
+             if "Watchdog" in ln or "timed out" in ln.lower() or "timeout" in ln.lower()][:3]
+    res["dead_host"] = {"rc": rc0, "seconds": ended_s, "ranks_left": sorted(left),
+                        "rank_pids": sorted(ranks_pids), "smi_during": sorted(smi_during),
+                        "smi_after": sorted(smi_after)}
+    log(f"phase 11c: a host dies mid-run: process 1's session (its CLI process, its two ranks "
+        f"and their helpers, pids {sorted(ranks_pids)} with process 0's) killed once rank 0 "
+        f"printed its cutoffs; process 0 exited with {rc0} {ended_s:.3f} s later "
+        f"(PLOIDYFROST_TIMEOUT={timeout} s, limit {timeout + 60} s); processes of either "
+        f"session left: {sorted(left) or 'none'}; nvidia-smi compute pids before "
+        f"{sorted(smi_before)}, during {sorted(smi_during)}, after {sorted(smi_after)}")
+    log("phase 11c: what process 0 reported: "
+        + " | ".join(cause or [ln.strip() for ln in err0.splitlines()[-6:]]))
+    if rc0 in (None, 0) or ended_s > timeout + 60:
+        raise AssertionError(f"phase 11c: process 0 returned {rc0} after {ended_s:.1f} s")
+    # nvidia-smi may name the processes by another pid namespace's pids:
+    # no compute process may hold a card after that did not before
+    if left or (smi_after - smi_before):
+        raise AssertionError(f"phase 11c: processes left: {sorted(left)}, "
+                             f"nvidia-smi {sorted(smi_after - smi_before)}")
+    if os.listdir(dirs[1]):
+        raise AssertionError(f"phase 11c: process 1 wrote {os.listdir(dirs[1])}")
+    log("phase 11c: passed")
     return res
 
 
@@ -2589,8 +2883,8 @@ def main() -> int:
     ap.add_argument("--profile-multi", action="store_true",
                     help="run multi3x5m under cProfile and print its 40 largest entries")
     ap.add_argument("--several-cards-only", action="store_true",
-                    help="run phase 11b alone: several cards against one, on a machine with "
-                    "two or more")
+                    help="run phases 11b and 11c alone: several cards against one, and two "
+                    "processes of two cards each, on a machine with four")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)

@@ -117,6 +117,33 @@ class KmerCounter:
         extract_canonical_into(dev, self.k, self._buf, self._fill, count=self._n_valid_dev)
         self._fill += B * n_row
 
+    def add_kmers(self, canon, valid=None):
+        """Count canonical keys given as they are (uint64 numpy array or
+        int64 tensor, any shape), each below 2^62; `valid` (bool, same
+        size) marks the ones to count, the others become the sentinel.
+        The valid count adds to total_kmers."""
+        if isinstance(canon, torch.Tensor):
+            keys = canon.reshape(-1).to(self.device, torch.int64)
+        else:
+            keys = torch.from_numpy(
+                np.ascontiguousarray(canon, dtype=np.uint64).reshape(-1).view(np.int64)
+            ).to(self.device)
+        if keys.numel() and bool(((keys < 0) | (keys >= 1 << 62)).any()):
+            raise ValueError("canonical keys must lie in [0, 2^62)")
+        if valid is None:
+            self._n_valid_dev += keys.numel()
+        else:
+            valid = torch.as_tensor(valid).reshape(-1).to(self.device, torch.bool)
+            keys = torch.where(valid, keys, SENTINEL)
+            self._n_valid_dev += valid.sum()
+        cap = self._buf.numel()
+        for off in range(0, keys.numel(), cap):  # chunks of the buffer's size
+            part = keys[off : off + cap]
+            if self._fill + part.numel() > cap:
+                self.flush()
+            self._buf[self._fill : self._fill + part.numel()] = part
+            self._fill += part.numel()
+
     # -- collapse --------------------------------------------------------
 
     def flush(self):

@@ -193,6 +193,16 @@ class KmerCountDB:
             self._lut = (lut, shift, nb - 1)
         return self._lut
 
+    @classmethod
+    def from_counter(cls, counter, min_count: int = 1):
+        """The table of a KmerCounter (kmer/count.py), keeping the k-mers
+        counted at least `min_count` times."""
+        km, ct = counter.arrays()
+        if min_count > 1:
+            keep = ct >= min_count
+            km, ct = km[keep], ct[keep]
+        return cls(km, ct, counter.k)
+
     def __len__(self):
         return self._n
 
@@ -249,6 +259,23 @@ class KmerCountDB:
             out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
         )
         return out
+
+    def lookup_strings(self, strings: list[str]):
+        """The count of every k-mer window of each ACGT string, one int64
+        array a string, from one batched lookup (CDBG::readCov's
+        per-window loop, src/CDBG.cpp:29-60). Raises KeyError when a
+        window is not in the table."""
+        from .pack import string_kmers_np
+
+        if not strings:
+            return []
+        kms = [string_kmers_np(s, self.k) for s in strings]
+        counts, hit = self.lookup(np.concatenate(kms))
+        if not hit.all():
+            missing = int(np.argmin(hit))
+            raise KeyError(f"k-mer not found in count table (query #{missing})")
+        ends = np.cumsum([len(km) for km in kms])
+        return np.split(counts, ends[:-1])
 
 
 class MultiColorCountDB:

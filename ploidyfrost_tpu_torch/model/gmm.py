@@ -578,23 +578,35 @@ def run_model(
     {out_prefix}_model_result.txt with the reference's exact layout,
     including `maxll` initialized to DBL_MIN — a *positive* tiny value,
     so negative loglikelihoods never displace ploidy 0
-    (src/Main.cpp:666-689). With `group`, every rank fits the same
-    model over its slice of the frequencies and only rank 0 writes.
+    (src/Main.cpp:666-689). With `group`, rank 0 alone reads the input
+    (a file rank 0 wrote lies in its own working directory, which the
+    ranks of another host do not see) and hands the frequencies to the
+    others, every rank fits the same model over its slice of them, and
+    only rank 0 writes. An input rank 0 cannot read ends every rank.
     """
+    from ..parallel.mesh import rank0_array, rank0_checks, rank0_decides
+
     model = GmmModel(device, group)
     model.set_m_threshold(m_threshold)
     model.set_n_threshold(n_threshold)
     model.set_max_iter_num(max_iter)
     model.set_max_delta_num(delta)
-    if cov_prefix:
-        model.read_cov_file(cov_prefix, frequency)
-    else:
-        model.read_fre_file(fre_file, frequency)
+    primary = group is None or group.rank == 0
+    if primary:
+        with rank0_checks(group):
+            if cov_prefix:
+                model.read_cov_file(cov_prefix, frequency)
+            else:
+                model.read_fre_file(fre_file, frequency)
+    if group is not None:
+        rc = rank0_decides(group)
+        if rc:
+            raise SystemExit(rc)
+        model.read_data(rank0_array(group, model.allele_fre if primary else None))
     maxll = DBL_MIN
     minaic = DBL_MAX
     ll_p = 0.0
     aic_p = 0.0
-    primary = group is None or group.rank == 0
     with open(out_prefix + "_model_result.txt" if primary else os.devnull, "w") as outfile:
         for g in range(gauss_lower, gauss_upper + 1):
             model.resize(g)

@@ -37,11 +37,23 @@ Multi-host, with the JAX package's variables:
 
 Each such process starts one rank per local device, as a JAX process
 owns its local devices; global rank = process_id * local + r, and
---devices=N then counts the devices of all processes together.
+--devices=N then counts the devices of all processes together. On
+cards a process's ranks take cuda:0 .. local - 1 of the cards it sees,
+so two processes on one host each get their own through
+CUDA_VISIBLE_DEVICES (0,1 and 2,3), or NCCL would find two ranks on one
+card; without PLOIDYFROST_LOCAL_DEVICES a process counts the cards it
+sees, and a value above that count is refused. Global rank 0, in
+process 0, hosts the rendezvous (a TCP store); the other processes may
+start first and wait for it.
 
-PLOIDYFROST_TIMEOUT (seconds, default 1800) bounds how long a
-collective waits for its peers, so a rank that dies cannot hang the
-others for ever.
+PLOIDYFROST_TIMEOUT (seconds, default 1800) bounds how long the
+rendezvous waits for every rank to join (a process that connects to the
+coordinator retries once inside torch, so up to about 1.5 times that)
+and how long a collective waits for its peers. A collective that
+outlives it raises in its rank (gloo; NCCL with the blocking wait that
+init_group sets, in place of torch's watchdog thread, which ends the
+process about 70 s late), so a rank or a host that dies cannot hang the
+others past the timeout.
 """
 
 from __future__ import annotations
@@ -57,6 +69,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 DEFAULT_TIMEOUT_S = 1800.0
@@ -165,6 +178,11 @@ def resolve_mesh(spec: int | str | None, device: str) -> RankPlan | None:
     nproc = mh.num_processes if mh else 1
     if mh and mh.local_devices:
         local_avail = mh.local_devices
+        if device == "cuda" and local_avail > torch.cuda.device_count():
+            raise SystemExit(
+                f"Error: PLOIDYFROST_LOCAL_DEVICES={local_avail} but only "
+                f"{torch.cuda.device_count()} devices visible"
+            )
     elif device == "cuda":
         local_avail = torch.cuda.device_count()
     else:
@@ -211,6 +229,13 @@ def init_group(plan: RankPlan, local_rank: int) -> Group:
 
     t0 = time.perf_counter()
     if plan.device_type == "cuda":
+        # a collective that outlives the timeout raises in this rank's
+        # own thread (blocking wait). torch's default leaves it to NCCL's
+        # watchdog thread, which ends the process only about 70 s after
+        # the timeout (it first waits for debug dumps), so a dead host
+        # would hold the other hosts' ranks past PLOIDYFROST_TIMEOUT
+        os.environ.setdefault("TORCH_NCCL_BLOCKING_WAIT", "1")
+        os.environ.setdefault("TORCH_NCCL_DUMP_ON_TIMEOUT", "0")
         torch.cuda.set_device(local_rank)
         device = torch.device("cuda", local_rank)
     else:
@@ -250,6 +275,23 @@ def rank0_decides(group: Group | None, rc: int = 0) -> int:
     t = torch.tensor([rc if group.rank == 0 else 0], dtype=torch.int64, device=group.device)
     dist.broadcast(t, 0)
     return int(t)
+
+
+def rank0_array(group: Group, x: np.ndarray | None) -> np.ndarray:
+    """Rank 0's 1-d float64 array `x` on every rank of `group` (two
+    broadcasts: its length, then its values). The other ranks pass None:
+    what rank 0 read from its own working directory, which another
+    host's ranks cannot see."""
+    import torch.distributed as dist
+
+    n = torch.tensor([len(x) if group.rank == 0 else 0], dtype=torch.int64, device=group.device)
+    dist.broadcast(n, 0)
+    if group.rank == 0:
+        t = torch.as_tensor(np.ascontiguousarray(x, dtype=np.float64)).to(group.device)
+    else:
+        t = torch.empty(int(n), dtype=torch.float64, device=group.device)
+    dist.broadcast(t, 0)
+    return x if group.rank == 0 else t.cpu().numpy()
 
 
 @contextlib.contextmanager
@@ -330,8 +372,8 @@ def run_ranks(plan: RankPlan, target, args=(), timeout: float | None = None) -> 
             procs[-1].start()
         while True:
             failed = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
-            if failed:
-                return failed[0]
+            if failed:  # a rank a signal ended (-sig) exits as a shell reports it
+                return failed[0] if failed[0] > 0 else 128 - failed[0]
             running = [p for p in procs if p.exitcode is None]
             if not running:
                 return procs[0].exitcode
