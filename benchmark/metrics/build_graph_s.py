@@ -1,0 +1,6 @@
+"""`build_graph_s`: the port's `stage_seconds["build_graph"]` summed over the window's calls, a call."""
+
+
+def read(run: dict):
+    s = run["stage_sums"].get("build_graph")
+    return None if s is None or not run["calls"] else s / run["calls"]

@@ -1,0 +1,6 @@
+"""`count_s`: the port's `stage_seconds["count"]` summed over the window's calls, a call."""
+
+
+def read(run: dict):
+    s = run["stage_sums"].get("count")
+    return None if s is None or not run["calls"] else s / run["calls"]

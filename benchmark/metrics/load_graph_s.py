@@ -1,0 +1,6 @@
+"""`load_graph_s`: the port's `stage_seconds["load_graph"]` summed over the window's calls, a call."""
+
+
+def read(run: dict):
+    s = run["stage_sums"].get("load_graph")
+    return None if s is None or not run["calls"] else s / run["calls"]

@@ -1,0 +1,6 @@
+"""`model_s`: the port's `stage_seconds["model"]` summed over the window's calls, a call."""
+
+
+def read(run: dict):
+    s = run["stage_sums"].get("model")
+    return None if s is None or not run["calls"] else s / run["calls"]

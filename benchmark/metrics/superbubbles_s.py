@@ -1,0 +1,6 @@
+"""`superbubbles_s`: the port's `stage_seconds["superbubbles"]` summed over the window's calls, a call."""
+
+
+def read(run: dict):
+    s = run["stage_sums"].get("superbubbles")
+    return None if s is None or not run["calls"] else s / run["calls"]
