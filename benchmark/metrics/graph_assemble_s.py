@@ -1,0 +1,6 @@
+"""`graph_assemble_s`: the port's `stage_seconds["assemble"]` summed over the window's calls, a call."""
+
+
+def read(run: dict):
+    s = run["stage_sums"].get("assemble")
+    return None if s is None or not run["calls"] else s / run["calls"]

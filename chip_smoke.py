@@ -130,12 +130,16 @@ Phases (any failure exits non-zero):
      exactly one kernel; then `run` on that
      graph with the native NW library withheld for that call, under
      PLOIDYFROST_TRACE: the same 12 tables, ENGINE_CALLS["device"] > 0
-     and ["numpy"] == 0, NW_LAUNCHES > 0, CUDA kernels in both phase
-     traces;
- 10. tracing: the single_diploid `run` under PLOIDYFROST_TRACE (both
-     phase traces written, CUDA kernels in findSuperBubble.json; its
-     sites pass is host code while the native NW kernel runs, so
-     ploidyEstimation.json holds kernels only in phase 9's run); then
+     and ["numpy"] == 0, NW_LAUNCHES > 0, one trace and one spans file,
+     the NW kernels in the trace inside the `align` span;
+ 10. tracing: the single_diploid `pipeline` under PLOIDYFROST_TRACE: the
+     same 12 tables, exactly one trace and one spans file, and the two
+     clocks agreeing: every EM kernel inside a `model` span, the search
+     kernel inside `search`, the count table's two D2H copies inside
+     `table_d2h`, each within 1 ms (the largest overshoot printed), the
+     root's record_function event inside the root span within 1 ms, and the
+     top-level spans plus `unstaged` covering the root; the spans
+     holding the most device idle time printed; then
      bench5m's superbubble search under the profiler: its kernels (the
      search kernel must be among them, no reduction kernel may be) and
      the card's busy share of it; then bench5m's nine GMM fits under the
@@ -2094,12 +2098,14 @@ def nw_wavefront(device: str, work: str, bench_pairs: list,
         raise AssertionError(f"run without the native NW library used engines {delta}")
     if device == "cuda" and launches < 1:
         raise AssertionError("the run without the native NW library never launched the NW kernel")
-    if device == "cuda" and min(n.values()) < 1:
-        raise AssertionError(f"the traces of that run hold CUDA kernels {n}")
+    nw = n["clocks"]["nw"]
+    if device == "cuda" and (n["kernels"] < 1 or nw["events"] < 1 or nw["overshoot_ms"] > 1.0):
+        raise AssertionError(f"the trace of that run: {n}")
     log(f"phase 9: `run` on the indel_dense graph with the native NW library withheld, "
         f"--device={device}, under PLOIDYFROST_TRACE: 12 tables byte-identical, engines {delta}, "
-        f"NW kernel launches {launches}, findSuperBubble.json holds {n['findSuperBubble']} CUDA "
-        f"kernels, ploidyEstimation.json {n['ploidyEstimation']} (the wavefront's)")
+        f"NW kernel launches {launches}, {' and '.join(n['files'])}, {n['kernels']} CUDA kernels "
+        f"in the trace, {nw['events']} of them the wavefront's, inside `align` within "
+        f"{nw['overshoot_ms']} ms")
     return {"launches": launches, "chunks": same["chunks"], "whole_equal": same["whole_equal"],
             "max_abs_err": same["max_abs_err"], "whole_max_abs_err": same["whole_max_abs_err"],
             "timing": timing}
@@ -2132,22 +2138,102 @@ def _trace_kernels(path: str) -> int:
         return sum(1 for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel")
 
 
-def _traced_run(device: str, src_prefix: str, out: str, cutoffs: list[str]) -> dict:
-    """`run` on <src_prefix>.gfa and .kmers.npz under PLOIDYFROST_TRACE=
-    ./<out>_trace; returns the CUDA kernel events of each phase's trace."""
+def _traced_command(device: str, argv: list[str], out: str, command: str) -> dict:
+    """The port's CLI on `argv` (-o `out`) under PLOIDYFROST_TRACE=
+    ./<out>_trace: the files it wrote there (exactly <out>.<command>.json
+    and .spans.json, else it raises), the CUDA kernels of the trace, and
+    the trace's device events held against the spans (`_clocks`)."""
     from ploidyfrost_tpu_torch.cli import main as cli_main
 
     trace_dir = os.path.abspath(out + "_trace")
     os.environ["PLOIDYFROST_TRACE"] = trace_dir
     try:
-        rc = cli_main(["-g", src_prefix + ".gfa", "-d", src_prefix + ".kmers.npz", "-o", out,
-                       *cutoffs, f"--device={device}"])
+        rc = cli_main([*argv, "-o", out, f"--device={device}"])
     finally:
         del os.environ["PLOIDYFROST_TRACE"]
     if rc != 0:
-        raise RuntimeError(f"traced run {out} returned {rc}")
-    return {name: _trace_kernels(os.path.join(trace_dir, name + ".json"))
-            for name in ("findSuperBubble", "ploidyEstimation")}
+        raise RuntimeError(f"traced {command} {out} returned {rc}")
+    files = sorted(os.listdir(trace_dir))
+    want = [f"{out}.{command}.json", f"{out}.{command}.spans.json"]
+    if files != want:
+        raise AssertionError(f"the trace directory holds {files}, not {want}")
+    trace, spans = (os.path.join(trace_dir, name) for name in want)
+    return {"files": files, "kernels": _trace_kernels(trace), "clocks": _clocks(trace, spans)}
+
+
+def _traced_run(device: str, src_prefix: str, out: str, cutoffs: list[str]) -> dict:
+    """`run` on <src_prefix>.gfa and .kmers.npz under PLOIDYFROST_TRACE
+    (`_traced_command`)."""
+    return _traced_command(device, ["-g", src_prefix + ".gfa", "-d", src_prefix + ".kmers.npz",
+                                    *cutoffs], out, "run")
+
+
+def _traced_pipeline(device: str, reads: str, out: str) -> dict:
+    """`pipeline` on `reads` under PLOIDYFROST_TRACE (`_traced_command`)."""
+    return _traced_command(device, ["pipeline", reads], out, "pipeline")
+
+
+def _clocks(trace_path: str, spans_path: str) -> dict:
+    """The device events of a command's chrome trace against its spans
+    file, both on time.time_ns's clock (the trace's `ts`, microseconds,
+    plus its baseTimeNanoseconds): for the EM kernels (span `model`), the
+    search kernel (`search`), the count table's two D2H copies
+    (`table_d2h`: the DtoH copies of 8 bytes a distinct k-mer) and the NW
+    kernels (`align`), how many there are and the most any reaches out
+    of the nearest span of its name (ms); the root's record_function
+    event against the root span (how far it reaches out, and the larger
+    distance between their ends, ms); the root against its top-level
+    spans plus `unstaged` (ms); and the five spans that hold the most
+    device idle time."""
+    with open(trace_path) as f:
+        doc = json.load(f)
+    with open(spans_path) as f:
+        record = json.load(f)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    events = doc["traceEvents"]
+    rows = record["spans"]
+
+    def ns(e):
+        a = base + round(float(e["ts"]) * 1000)
+        return a, a + round(float(e.get("dur", 0)) * 1000)
+
+    def out_of(iv, name):
+        a, b = iv
+        reach = [max(0, r["start_ns"] - a, b - r["end_ns"]) for r in rows if r["name"] == name]
+        return min(reach) if reach else float("inf")
+
+    kmer_rows = next((r["attrs"]["d2h_bytes"] // 16 for r in rows if r["name"] == "table_d2h"),
+                     None)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    d2h = [e for e in events if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")]
+    table = [e for e in d2h if e.get("args", {}).get("bytes") == 8 * kmer_rows]         if kmer_rows is not None else []
+    groups = {"em": ("model", [e for e in kernels if "em_kernel" in e["name"]]),
+              "search": ("search", [e for e in kernels if "superbubble_search" in e["name"]]),
+              "table_d2h": ("table_d2h", table),
+              "nw": ("align", [e for e in kernels
+                               if "nw_regs" in e["name"] or "nw_shared" in e["name"]])}
+    out = {}
+    for key, (name, evs) in groups.items():
+        worst = max((out_of(ns(e), name) for e in evs), default=0)
+        out[key] = {"span": name, "events": len(evs), "overshoot_ms": worst / 1e6}
+    root = rows[0]
+    ann = [e for e in events if e.get("cat") == "user_annotation" and e.get("name") == root["name"]]
+    if ann:
+        a, b = ns(ann[0])
+        out["root_event"] = {
+            "overshoot_ms": max(0, root["start_ns"] - a, b - root["end_ns"]) / 1e6,
+            "offset_ms": max(abs(a - root["start_ns"]), abs(root["end_ns"] - b)) / 1e6}
+    top = sum(r["end_ns"] - r["start_ns"] for r in rows
+              if r["parent"] == 0 and r["thread"] == root["thread"])
+    out["root_gap_ms"] = abs(root["end_ns"] - root["start_ns"] - top
+                             - record["stage_seconds"]["unstaged"] * 1e9) / 1e6
+    idle = {}
+    for r in rows:
+        if r.get("device_idle_s") is not None:
+            idle[r["name"]] = idle.get(r["name"], 0.0) + r["device_idle_s"]
+    out["idle_s"] = dict(sorted(idle.items(), key=lambda kv: -kv[1])[:5])
+    out["busy_s"] = sum(r.get("device_busy_s") or 0.0 for r in rows if r["parent"] is None)
+    return out
 
 
 def traced_run_without_native_nw(device: str, src_prefix: str, out: str,
@@ -2225,14 +2311,24 @@ def tracing(device: str, work: str, golden_dir: str, bench_dir: str) -> dict:
     profile."""
     os.makedirs(work, exist_ok=True)
     os.chdir(work)
-    n = in_fresh_process("_traced_run", device, os.path.join(golden_dir, "gold"), "traced",
-                         ["-l", "10", "-u", "37"])
+    n = in_fresh_process("_traced_pipeline", device, os.path.join(golden_dir, "reads.fa"),
+                         "traced")
     check_golden_tables(GOLD, "traced")
-    if device == "cuda" and n["findSuperBubble"] < 1:
-        raise AssertionError(f"the traces of the single_diploid run hold CUDA kernels {n}")
-    log(f"phase 10: `run` under PLOIDYFROST_TRACE (single_diploid): tables byte-identical, "
-        f"findSuperBubble.json holds {n['findSuperBubble']} CUDA kernels, ploidyEstimation.json "
-        f"{n['ploidyEstimation']} (its sites pass is host code while the native NW kernel runs)")
+    c = n["clocks"]
+    held = {key: c[key] for key in ("em", "search", "table_d2h")}
+    worst = max(v["overshoot_ms"] for v in held.values())
+    if device == "cuda" and (held["em"]["events"] != 9 or held["search"]["events"] != 1
+                             or held["table_d2h"]["events"] != 2 or worst > 1.0
+                             or c["root_event"]["overshoot_ms"] > 1.0 or c["root_gap_ms"] > 1.0):
+        raise AssertionError(f"the trace and spans of the single_diploid pipeline: {n}")
+    log(f"phase 10: `pipeline` under PLOIDYFROST_TRACE (single_diploid): tables byte-identical, "
+        f"{' and '.join(n['files'])}, {n['kernels']} CUDA kernels; on the span clock "
+        + ", ".join(f"{v['events']} {key} event(s) inside `{v['span']}`" for key, v in held.items())
+        + f", the largest overshoot {worst:.6f} ms; the root's record_function event inside the "
+        f"root span within {c['root_event']['overshoot_ms']:.6f} ms, its ends at most "
+        f"{c['root_event']['offset_ms']:.6f} ms from the span's; top-level spans plus unstaged cover "
+        f"the root within {c['root_gap_ms']:.6f} ms; the card busy {c['busy_s']:.4f} s; the "
+        f"spans holding the most idle time (s): {c['idle_s']}")
 
     r = in_fresh_process("profile_find_superbubbles", os.path.join(bench_dir, "bench5m.gfa"),
                          device)

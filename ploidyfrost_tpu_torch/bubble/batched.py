@@ -61,6 +61,7 @@ import torch
 
 from .. import resolve_device
 from ..graph.cdbg import CDBGraph, UnitigHandle
+from ..util.profiling import add_count, span
 from .superbubble import (
     NULL,
     BubbleState,
@@ -739,21 +740,24 @@ def find_superbubbles_device(
     """Drop-in replacement for superbubble.find_superbubbles: batched
     search on `device` (or split over `group`'s ranks, called on rank 0:
     the other ranks join with search_seeds(None, None, group=group)) +
-    host replay. Byte-identical outputs."""
+    host replay. Byte-identical outputs. Spans: `search` (the seeds,
+    upload, launch and readback) and `replay`."""
     n = len(g)
     state = BubbleState(n)
-    seed_list = canonical_seeds(g)
-    if len(seed_list) == 0:
-        if group is not None:  # the other ranks wait in the search's broadcast
-            search_seeds(g, seed_list, device, group)
-        return state, []
+    with span("search"):
+        seed_list = canonical_seeds(g)
+        add_count("seeds", len(seed_list))
+        if len(seed_list) == 0:
+            if group is not None:  # the other ranks wait in the search's broadcast
+                search_seeds(g, seed_list, device, group)
+            return state, []
+        status, psec, nseen, seen, cyc = search_seeds(g, seed_list, device, group)
 
-    status, psec, nseen, seen, cyc = search_seeds(g, seed_list, device, group)
-
-    # flat-int replay: same transitions, no handle objects; the colored
-    # registration gates run on precomputed ColorMatrix arrays
-    _replay_fast(
-        g, state, seed_list, status, psec, nseen, seen, cyc, complex_size,
-        colors,
-    )
-    return state, list_bubbles(state, n, colors)
+    with span("replay"):
+        # flat-int replay: same transitions, no handle objects; the colored
+        # registration gates run on precomputed ColorMatrix arrays
+        _replay_fast(
+            g, state, seed_list, status, psec, nseen, seen, cyc, complex_size,
+            colors,
+        )
+        return state, list_bubbles(state, n, colors)

@@ -74,6 +74,9 @@ from __future__ import annotations
 
 import sys
 
+from .util.profiling import Spans
+
+
 def _getopt(argv, optstring):
     """Minimal POSIX getopt clone matching the reference's parse loop."""
     opts = []
@@ -146,8 +149,14 @@ class Options:
         self.trim = None
         # --device-build: junction sort of graph construction on the device
         self.device_build = False
-        # wall seconds per pipeline stage (pipeline.run_pipeline_cli)
-        self.stage_seconds = {}
+        # the spans of the command that runs with these options
+        # (pipeline, pipeline-multi, run; util/profiling.py)
+        self.spans = Spans()
+
+    @property
+    def stage_seconds(self) -> dict:
+        """Wall seconds of each stage of the command, read from `spans`."""
+        return self.spans.stage_seconds()
 
 
 _OPTSTRING = "M:D:G:z:a:l:q:u:e:C:R:o:t:g:f:k:d:m:n:h:ibvpNSc"
@@ -357,7 +366,7 @@ def cmd_count(argv, device="cuda", group=None) -> int:
     if not opt.inputs:
         print("Error: no input reads", file=sys.stderr)
         return 1
-    counter, _ = count_sample(opt.inputs, opt.k, dev, group=group)
+    counter = count_sample(opt.inputs, opt.k, dev, group=group)
     if not is_primary(group):
         return 0
     km, ct = counter.arrays()

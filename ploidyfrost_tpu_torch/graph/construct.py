@@ -33,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..kmer.pack import decode_kmers
+from ..util.profiling import span
 from .cdbg import CDBGraph, revcomp
 
 
@@ -491,18 +492,26 @@ def build_graph_from_kmers(
     """Compact a sorted distinct canonical k-mer set into unitigs.
     `link_device` (a torch.device) moves the junction sort of the link
     step there (_links_junctions_device); None keeps it in the native
-    host kernel. The graph is the same either way."""
+    host kernel. The graph is the same either way. Spans: `link` (the
+    reverse complements, links and chain ranks) and `assemble`."""
     km = np.asarray(kmers, dtype=np.uint64)
     n = len(km)
     if n == 0:
         return CDBGraph([], k)
-    rc = _revcomp_np(km, k)
+    with span("link"):
+        rc = _revcomp_np(km, k)
+        if link_device is not None:
+            nxt_node = _links_junctions_device(km, rc, k, link_device)
+        else:
+            nxt_node = _links_junctions_fast(km, rc, k)
+        order, chain_start = _rank_chains_fast(nxt_node)
+    with span("assemble"):
+        return _assemble(km, rc, k, order, chain_start)
 
-    if link_device is not None:
-        nxt_node = _links_junctions_device(km, rc, k, link_device)
-    else:
-        nxt_node = _links_junctions_fast(km, rc, k)
-    order, chain_start = _rank_chains_fast(nxt_node)
+
+def _assemble(km, rc, k: int, order, chain_start) -> CDBGraph:
+    """The ranked chains as unitigs: decoded, packed, each in its
+    canonical orientation, in lexicographic order."""
     starts = np.flatnonzero(chain_start)
     ends = np.append(starts[1:], len(order))
 
@@ -800,14 +809,16 @@ def simplify(g: CDBGraph, k: int) -> CDBGraph:
     the affected junction stubs; its (rare) unresolvable cases fall
     back to a full recompaction of the surviving k-mer set — the two
     are equivalent by construction (maximal chains of the same k-mer
-    set) and cross-checked in tests/test_construct.py."""
-    lens = g.store.lengths
-    deg_fw = g._out_deg[:, 1]
-    deg_bw = g._out_deg[:, 0]
-    drop = (lens < 2 * k) & ((deg_fw == 0) | (deg_bw == 0))
-    if not drop.any():
-        return g
-    fast = _simplify_fast(g, k, np.asarray(drop))
+    set) and cross-checked in tests/test_construct.py. An `assemble`
+    span (the fallback's construction has its own spans)."""
+    with span("assemble"):
+        lens = g.store.lengths
+        deg_fw = g._out_deg[:, 1]
+        deg_bw = g._out_deg[:, 0]
+        drop = (lens < 2 * k) & ((deg_fw == 0) | (deg_bw == 0))
+        if not drop.any():
+            return g
+        fast = _simplify_fast(g, k, np.asarray(drop))
     if fast is not None:
         return fast
     return _simplify_rebuild(g, k, np.asarray(drop))
@@ -816,12 +827,13 @@ def simplify(g: CDBGraph, k: int) -> CDBGraph:
 def _simplify_rebuild(g: CDBGraph, k: int, drop: np.ndarray) -> CDBGraph:
     """Full recompaction of the surviving k-mer set — the oracle the
     fast path is tested against, and the fallback for its bail cases."""
-    flat, nk = g.store.all_kmers(k)
-    seg = np.repeat(np.arange(len(nk)), nk)
-    kept = flat[~drop[seg]]
-    if len(kept) == 0:
-        return CDBGraph([], k)
-    allkm = np.unique(_canon_np(kept, k))
+    with span("assemble"):
+        flat, nk = g.store.all_kmers(k)
+        seg = np.repeat(np.arange(len(nk)), nk)
+        kept = flat[~drop[seg]]
+        if len(kept) == 0:
+            return CDBGraph([], k)
+        allkm = np.unique(_canon_np(kept, k))
     return build_graph_from_kmers(allkm, k)
 
 

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..util.profiling import add_count
 from .extract import extract_canonical_into
 from .pack import SENTINEL
 
@@ -113,6 +114,7 @@ class KmerCounter:
             return
         if self._fill + B * n_row > cap:
             self.flush()
+        add_count("h2d_bytes", codes.nbytes)
         dev = codes.to(self.device).contiguous()
         extract_canonical_into(dev, self.k, self._buf, self._fill, count=self._n_valid_dev)
         self._fill += B * n_row
@@ -164,7 +166,9 @@ class KmerCounter:
         int64) as host numpy arrays (counts are clamped at every merge)."""
         self.flush()
         km = self._tkm.cpu().numpy().view(np.uint64)
-        return km, self._tct.cpu().numpy()
+        ct = self._tct.cpu().numpy()
+        add_count("d2h_bytes", km.nbytes + ct.nbytes)
+        return km, ct
 
     def histogram(self, max_cov: int | None = None) -> np.ndarray:
         """KMC-style histogram: hist[c] = number of distinct k-mers with

@@ -51,6 +51,7 @@ import torch
 
 from .. import resolve_device
 from ..util.format import cpp_double
+from ..util.profiling import add_count
 
 DBL_MIN = float(np.finfo(np.float64).tiny)  # 2.2250738585072014e-308
 DBL_MAX = float(np.finfo(np.float64).max)
@@ -513,9 +514,10 @@ class GmmModel:
         args = (self._af(), *self._params(), self.em_max_iter, self.m_thre, self.n_thre,
                 self.em_max_delta)
         if self.group is None:
-            v, w, ll, _ = _em_iterate(*args)
+            v, w, ll, count = _em_iterate(*args)
         else:
-            v, w, ll, _ = _em_iterate_group(*args, self.group)
+            v, w, ll, count = _em_iterate_group(*args, self.group)
+        add_count("em_iterations", count)
         self.vars = v.cpu().numpy()
         self.weights = w.cpu().numpy()
         self.log_likelihood = float(ll)

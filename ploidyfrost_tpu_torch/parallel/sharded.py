@@ -59,6 +59,7 @@ import torch.distributed as dist
 from ..kmer.count import DEFAULT_COUNTER_MAX, _collapse
 from ..kmer.extract import extract_canonical_into
 from ..kmer.pack import SENTINEL
+from ..util.profiling import add_count, span
 from .mesh import Group
 
 _MIX1 = 0xBF58476D1CE4E5B9 - (1 << 64)  # the splitmix64 constants as int64
@@ -168,6 +169,7 @@ class ShardedKmerCounter:
             self.flush()
         lo, hi = rank_rows(B, self.group)
         if hi > lo:
+            add_count("h2d_bytes", codes[lo:hi].nbytes)
             dev = codes[lo:hi].to(self.device).contiguous()
             extract_canonical_into(dev, self.k, self._buf, self._fill, count=self._n_valid_dev)
             self._fill += (hi - lo) * n_row
@@ -214,19 +216,20 @@ class ShardedKmerCounter:
         if self._finalized is not None:
             return self._finalized
         self.flush()
-        t0 = time.perf_counter()
-        cm, world, rank = self.counter_max, self.group.world, self.group.rank
-        hist = torch.bincount(self._tct.clamp(0, cm), minlength=cm + 1)[: cm + 1]
-        # the instance count, then one slot a rank for its shard's length
-        head = torch.zeros(world + 1, dtype=torch.int64, device=self.device)
-        head[0] = self._total_local
-        head[1 + rank] = self._tkm.numel()
-        red = all_sum(self.group, torch.cat([hist, head])).cpu().numpy()
-        hist_np, total, lens = red[: cm + 1], int(red[cm + 1]), red[cm + 2 :]
-        hist_np[0] = 0
-        table = self._shards_to_rank0(lens)
-        self._finalized = (*table, hist_np, total, int(lens.sum()))
-        self.finalize_s = time.perf_counter() - t0
+        with span("finalize"):
+            t0 = time.perf_counter()
+            cm, world, rank = self.counter_max, self.group.world, self.group.rank
+            hist = torch.bincount(self._tct.clamp(0, cm), minlength=cm + 1)[: cm + 1]
+            # the instance count, then one slot a rank for its shard's length
+            head = torch.zeros(world + 1, dtype=torch.int64, device=self.device)
+            head[0] = self._total_local
+            head[1 + rank] = self._tkm.numel()
+            red = all_sum(self.group, torch.cat([hist, head])).cpu().numpy()
+            hist_np, total, lens = red[: cm + 1], int(red[cm + 1]), red[cm + 2 :]
+            hist_np[0] = 0
+            table = self._shards_to_rank0(lens)
+            self._finalized = (*table, hist_np, total, int(lens.sum()))
+            self.finalize_s = time.perf_counter() - t0
         return self._finalized
 
     def _shards_to_rank0(self, lens: np.ndarray):
@@ -251,6 +254,7 @@ class ShardedKmerCounter:
                 host.append(buf[:n].to("cpu", copy=True).numpy())
         del buf
         km, ct = np.concatenate(kms), np.concatenate(cts)
+        add_count("d2h_bytes", km.nbytes + ct.nbytes)
         # each shard is sorted and the shards are disjoint (keys are owned
         # by hash), so a stable argsort merges the runs (numpy's timsort).
         # Keys are < 2^62 for k <= 31: their int64 and uint64 orders agree.

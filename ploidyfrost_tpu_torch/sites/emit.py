@@ -38,6 +38,7 @@ from ..align.msa import SeqAlign
 from ..bubble.superbubble import NULL, BubbleState
 from ..graph.cdbg import CDBGraph
 from ..util.format import cpp_double
+from ..util.profiling import add_count
 
 
 @dataclass
@@ -591,6 +592,7 @@ def analyze_bubbles(
     slow_idx = [
         i for i in range(len(jobs)) if fast[i] is None and not gapless[i]
     ]
+    add_count("nw_pairs", len(slow_idx))
     firsts: list = [None] * len(jobs)
     if (
         batch_align

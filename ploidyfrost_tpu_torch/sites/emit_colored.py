@@ -39,6 +39,7 @@ from ..bubble.superbubble import NULL, BubbleState
 from ..graph.cdbg import CDBGraph
 from ..graph.colors import ColorMatrix, KmerPosIndex
 from ..util.format import cpp_double
+from ..util.profiling import add_count
 from .emit import (
     _enumerate_paths,
     _indel_windows,
@@ -220,6 +221,7 @@ def window_coverage_colored(dbs, strings: list[str], cutoffs):
     from ..kmer.pack import encode_bases
 
     uniq = sorted(set(strings))
+    add_count("windows", len(uniq))
     out: dict[str, tuple[np.ndarray, np.ndarray]] = {}
     if not uniq:
         return out
@@ -523,6 +525,7 @@ def analyze_bubbles_colored(
     slow_idx = [
         i for i in range(len(jobs)) if fast[i] is None and not gapless[i]
     ]
+    add_count("nw_pairs", len(slow_idx))
 
     firsts: list = [None] * len(jobs)
     if (

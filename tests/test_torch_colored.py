@@ -126,7 +126,11 @@ def test_functions_model_matches_reference(functions_run):
 def test_functions_cutoffs_ploidy_and_stages(functions_run):
     assert functions_run["cutoffs"] == CUTOFFS
     assert functions_run["ploidy"] == 2
-    assert set(functions_run["opt"].stage_seconds) == {"load_graph", "superbubbles", "sites"}
+    assert set(functions_run["opt"].stage_seconds) == {
+        "load_graph", "superbubbles", "sites",
+        "load_table", "search", "replay", "coverage", "coverage_wait", "align",
+        "window_coverage", "write_tables", "unstaged",
+    }
 
 
 def test_bfg_colors_round_trip_bit_equal(functions_run):
@@ -307,6 +311,8 @@ def test_multi_model_cutoffs_and_stages(multi_run):
     assert set(opt.stage_seconds) == {
         "read", "count", "build_graph", "color_graph",
         "load_graph", "superbubbles", "sites", "model",
+        "table_d2h", "link", "assemble", "write_graph", "load_table", "search", "replay",
+        "coverage", "coverage_wait", "align", "window_coverage", "write_tables", "unstaged",
     }
     for ext in (".gfa", ".colors.npz", ".s0.kmers.npz", ".s2.hist.txt"):
         a, b = os.path.join(d, "gold" + ext), os.path.join(d, "jx" + ext)

@@ -62,6 +62,8 @@ def test_cutoffs_and_ploidy(port_run):
         assert f.read().rstrip().endswith("estimated ploidy level is : 2")
     assert set(opt.stage_seconds) == {
         "read", "count", "build_graph", "load_graph", "superbubbles", "sites", "model",
+        "table_d2h", "link", "assemble", "write_graph", "load_table", "search", "replay",
+        "coverage", "coverage_wait", "align", "window_coverage", "write_tables", "unstaged",
     }
 
 
