@@ -358,6 +358,7 @@ def cmd_count(argv, device="cuda", group=None) -> int:
     import numpy as np
 
     from . import resolve_device
+    from .io.fastx import ReadAhead
     from .parallel.mesh import is_primary
     from .pipeline import count_sample
 
@@ -366,7 +367,8 @@ def cmd_count(argv, device="cuda", group=None) -> int:
     if not opt.inputs:
         print("Error: no input reads", file=sys.stderr)
         return 1
-    counter = count_sample(opt.inputs, opt.k, dev, group=group)
+    with ReadAhead([opt.inputs], opt.k) as reader:
+        counter = count_sample(reader, 0, dev, group=group)
     if not is_primary(group):
         return 0
     km, ct = counter.arrays()

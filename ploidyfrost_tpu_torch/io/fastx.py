@@ -11,21 +11,32 @@ Two implementations with identical semantics:
 
   * ``read_batches_py`` — pure Python (always available; the test oracle);
   * the native C++ loader (native/fastx_reader.cpp, ctypes-bound via
-    native/__init__.py) — used transparently by ``read_batches`` when it
-    builds/loads, because gzip + per-line Python loops are the ingest
-    bottleneck once counting itself runs at device speed.
+    native/__init__.py) — used transparently by ``ReadAhead`` and
+    ``read_batches`` when it builds/loads, because gzip + per-line Python
+    loops are the ingest bottleneck once counting itself runs at device
+    speed; ``ReadAhead`` runs it on worker threads, one a file, ahead of
+    the counter.
 
 ``tests/test_native.py`` asserts byte-identical batches between the two.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import gzip
+import os
+import threading
 from typing import Iterator
 
 import numpy as np
 
 from ..kmer.pack import INVALID_BASE, encode_bases
+from ..util import profiling
+
+# batches a file's queue holds at most: 64 MiB at 150 bp reads, whose
+# [16384, 160] batches are 2.6 MB
+AHEAD_BATCHES = 24
 
 
 def _open(path: str):
@@ -268,19 +279,183 @@ def read_batches(
     max_len: int | None = None,
     trim=None,
 ) -> Iterator[np.ndarray]:
-    """Yield [batch_reads, max_len] uint8 code batches from FASTX files,
-    using the native loader when it is available (identical output,
+    """Yield [batch_reads, max_len] uint8 code batches of one sample's
+    FASTX files through ReadAhead: each file read ahead on a thread of
+    its own when the native loader is available, its batches taken
+    round-robin; else read_batches_py over the files (identical rows,
     including the quality-trimming cascade, which the native reader
     applies in C — tests/test_trim.py asserts batch parity).
     ``max_len=None`` sizes the window from the first record
     (_auto_max_len)."""
-    from ..native import load_library
-
     if isinstance(paths, str):
         paths = [paths]
-    if max_len is None:
-        max_len = _auto_max_len(paths, k)
-    if load_library() is not None:
-        yield from read_batches_native(paths, k, batch_reads, max_len, trim)
-    else:
-        yield from read_batches_py(paths, k, batch_reads, max_len, trim=trim)
+    with ReadAhead([paths], k, batch_reads, max_len, trim) as reader:
+        yield from reader.sample(0)
+
+
+class ReadAhead:
+    """Every sample's FASTX files read ahead of the counter: each file
+    inflated and parsed by `read_batches_native` on a worker thread of
+    its own, into a queue of its own of at most AHEAD_BATCHES batches.
+
+    `sample(i)` yields sample i's batches round-robin over its files in
+    path order (file 0's first batch, file 1's first, file 0's second,
+    ...; a file that ends drops out), so the sequence depends on the
+    inputs alone: the ranks of a group, which each read every batch,
+    agree batch for batch. Each file ends in a partial batch of its own,
+    padded with the invalid code. Later samples' files inflate while the
+    current one is counted, until their queues are full.
+
+    At most max(1, min(files, usable cores - 1)) files inflate at once; a
+    worker whose queue is full gives its turn up, and the turns go to the
+    first files in path order. A worker's exception (a missing file, a
+    truncated gz) is raised by `sample` where that file's next batch would
+    have come. Leaving the `with` block, `close()`, or a sample's batches
+    left before their end (an error, or the generator closed) stops every
+    worker, closes its file and joins its thread.
+
+    Without the native library, whose calls release the GIL, `sample(i)`
+    is the serial `read_batches_py` over sample i's files.
+
+    `counts[i]`, once sample i's batches have been taken: `read_files`
+    (the files inflating at once, at most, since the reader began or the
+    batches of the sample before were taken), `batches` (yielded) and
+    `batches_ready` (already queued when asked for). Each worker runs in
+    an `inflate` span, a child of the span open where the reader was
+    made."""
+
+    def __init__(self, samples, k: int, batch_reads: int = 16384, max_len: int | None = None,
+                 trim=None):
+        from ..native import load_library
+
+        self.samples = [list(s) for s in samples]
+        self.k, self.batch_reads, self.trim = k, batch_reads, trim
+        self.max_lens = [max_len or _auto_max_len(s, k) for s in self.samples]
+        self.counts: list[dict] = [{} for _ in self.samples]
+        self._files = [(i, p) for i, s in enumerate(self.samples) for p in s]
+        n = len(self._files)
+        self._cond = threading.Condition()
+        self._queues = [collections.deque() for _ in range(n)]
+        self._done = [False] * n
+        self._errors: list[Exception | None] = [None] * n
+        self._turns = self._free = max(1, min(n, len(os.sched_getaffinity(0)) - 1))
+        self._waiting: list[int] = []  # files waiting for a turn
+        self._peak = 0
+        self._stop = False
+        self._parent = profiling.current()
+        self._threads = []
+        if load_library() is not None:
+            self._threads = [threading.Thread(target=self._work, args=(f,), daemon=True,
+                                              name=f"fastx-ahead-{f}") for f in range(n)]
+        for t in self._threads:
+            t.start()
+
+    def __enter__(self) -> ReadAhead:
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.close()
+        return False
+
+    def close(self) -> None:
+        with self._cond:
+            self._stop = True
+            self._cond.notify_all()
+        for t in self._threads:
+            t.join()
+
+    def _take_turn(self, f: int) -> bool:
+        """Wait (holding the lock) for a turn to inflate, given first to
+        the first file in path order; False once the reader stops."""
+        self._waiting.append(f)
+        while not self._stop and not (self._free and min(self._waiting) == f):
+            self._cond.wait()
+        self._waiting.remove(f)
+        self._cond.notify_all()  # the next file in line may take a turn left free
+        if self._stop:
+            return False
+        self._free -= 1
+        self._peak = max(self._peak, self._turns - self._free)
+        return True
+
+    def _give_turn(self) -> None:
+        self._free += 1
+        self._cond.notify_all()
+
+    def _work(self, f: int) -> None:
+        i, path = self._files[f]
+        batches = read_batches_native([path], self.k, self.batch_reads, self.max_lens[i],
+                                      self.trim)
+        q = self._queues[f]
+        held = False
+        try:
+            with self._cond:
+                held = self._take_turn(f)
+            if not held:
+                return
+            p = self._parent
+            with contextlib.nullcontext() if p is None else p.record.span("inflate", p):
+                for buf in batches:  # the native calls release the GIL
+                    with self._cond:
+                        if len(q) >= AHEAD_BATCHES:
+                            self._give_turn()
+                            held = False
+                            while len(q) >= AHEAD_BATCHES and not self._stop:
+                                self._cond.wait()
+                            held = self._take_turn(f)
+                        if self._stop:
+                            return
+                        q.append(buf)
+                        self._cond.notify_all()
+        except Exception as e:  # raised again by sample(), where this file's batch was due
+            self._errors[f] = e
+        finally:
+            batches.close()
+            with self._cond:
+                if held:
+                    self._give_turn()
+                self._done[f] = True
+                self._cond.notify_all()
+
+    def sample(self, i: int) -> Iterator[np.ndarray]:
+        """Sample i's batches, in the order the class docstring gives."""
+        if not self._threads:
+            return self._serial(i)
+        return self._round_robin(i)
+
+    def _round_robin(self, i: int) -> Iterator[np.ndarray]:
+        files = [f for f, (s, _) in enumerate(self._files) if s == i]
+        n = ready = 0
+        try:
+            while files:
+                for f in list(files):
+                    q = self._queues[f]
+                    with self._cond:
+                        ready += bool(q)
+                        while not q and not self._done[f]:
+                            self._cond.wait()
+                        if not q:
+                            if self._errors[f] is not None:
+                                raise self._errors[f]
+                            files.remove(f)
+                            continue
+                        buf = q.popleft()
+                        self._cond.notify_all()
+                    n += 1
+                    yield buf
+        finally:
+            with self._cond:
+                self.counts[i] = {"read_files": self._peak, "batches": n, "batches_ready": ready}
+                self._peak = self._turns - self._free
+            if files:  # stopped early, by the consumer or by a worker's error
+                self.close()
+
+    def _serial(self, i: int) -> Iterator[np.ndarray]:
+        n = 0
+        try:
+            for buf in read_batches_py(self.samples[i], self.k, self.batch_reads,
+                                       self.max_lens[i], trim=self.trim):
+                n += 1
+                yield buf
+        finally:
+            self.counts[i] = {"read_files": 1, "batches": n, "batches_ready": 0}

@@ -42,6 +42,7 @@ import time
 import numpy as np
 
 from . import resolve_device
+from .io.fastx import ReadAhead
 from .parallel.mesh import is_primary, make_counter, rank0_checks, rank0_decides, sync
 from .util.profiling import add_count, span
 
@@ -426,21 +427,23 @@ def run_analysis(opt, device="cuda", group=None) -> int:
     return 0
 
 
-def count_sample(files, k: int, dev, trim=None, group=None):
-    """Count one sample's reads on `dev`, or over `group`'s ranks (each
-    reads every batch and counts its slice, then enters the finalization:
-    the histogram's reduction and its shard's send to rank 0). Returns
-    the counter; each wait for the reader is a `read` span."""
-    from .io.fastx import read_batches
-
-    counter = make_counter(k, dev, group)
-    batches = read_batches(files, k, trim=trim)
+def count_sample(reader, i: int, dev, group=None):
+    """Count sample i of `reader` (io/fastx.ReadAhead) on `dev`, or over
+    `group`'s ranks (each reads every batch and counts its slice, then
+    enters the finalization: the histogram's reduction and its shard's
+    send to rank 0). Returns the counter; each wait for the reader is a
+    `read` span, and the reader's counts of the sample land on the open
+    span."""
+    counter = make_counter(reader.k, dev, group)
+    batches = reader.sample(i)
     while True:
         with span("read"):
             batch = next(batches, None)
         if batch is None:
             break
         counter.add_reads(batch)
+    for key, n in reader.counts[i].items():
+        add_count(key, n)
     if group is not None:
         counter.finalize()
     return counter
@@ -523,15 +526,16 @@ def _follow_pipeline(opt, dev, group, samples) -> int:
     sample (a list of files) and send the shard to rank 0, wait while
     rank 0 builds and writes the graph, join the search, and fit this
     rank's slice of the allele frequencies once rank 0 has written them.
-    Its stage seconds: read, count (finalize within it), wait (at the
-    barriers and for rank 0's verdict), superbubbles (its part of the
-    search) and model."""
+    Its stage seconds: read, count (finalize within it), inflate (the
+    reader's workers), wait (at the barriers and for rank 0's verdict),
+    superbubbles (its part of the search) and model."""
     flushes = []
-    for files in samples:
-        with span("count"):
-            counter = count_sample(files, opt.k, dev, trim=opt.trim, group=group)
-        flushes += counter.flush_log
-        del counter  # frees the shard and the buffer
+    with ReadAhead(samples, opt.k, trim=opt.trim) as reader:
+        for i in range(len(samples)):
+            with span("count"):
+                counter = count_sample(reader, i, dev, group=group)
+            flushes += counter.flush_log
+            del counter  # frees the shard and the buffer
     with span("wait"):
         sync(group)  # rank 0 built and wrote the graph
     rc = _join_analysis(opt, group)
@@ -594,14 +598,14 @@ def build_colored_graph_cli(opt, device="cuda", group=None) -> int:
         return 1
     primary = is_primary(group)
     t0 = time.time()
+    samples = [s.split(",") for s in opt.inputs]
     sample_kmers = []
-    names = []
-    for sample in opt.inputs:
-        files = sample.split(",")
-        counter = count_sample(files, opt.k, dev, group=group)
-        if primary:
-            sample_kmers.append(counter.arrays()[0])
-        names.append(files[0])
+    with ReadAhead(samples, opt.k) as reader:
+        for i in range(len(samples)):
+            counter = count_sample(reader, i, dev, group=group)
+            if primary:
+                sample_kmers.append(counter.arrays()[0])
+    names = [files[0] for files in samples]
     if not primary:
         return 0
     g = simplify(
@@ -638,19 +642,22 @@ def run_multisample_pipeline_cli(opt, device="cuda", group=None) -> int:
     if not opt.inputs:
         print("Error: no input samples", file=sys.stderr)
         return 1
+    samples = [s.split(",") for s in opt.inputs]
     if not is_primary(group):
-        return _follow_pipeline(opt, dev, group, [s.split(",") for s in opt.inputs])
+        return _follow_pipeline(opt, dev, group, samples)
     flushes = []
     pre = opt.outprefix
     filtered = []
     names = []
     cutoffs = []
     db_list_path = pre + ".kmc_list.txt"
-    with open(db_list_path, "w") as dblist, open(pre + ".coverage_cutoff.txt", "w") as covfile:
-        for i, sample in enumerate(opt.inputs):
-            files = sample.split(",")
+    # every sample's files are read ahead from here on, the next sample's
+    # while this one is counted, its table fetched and saved
+    with open(db_list_path, "w") as dblist, open(pre + ".coverage_cutoff.txt", "w") as covfile, \
+            ReadAhead(samples, opt.k, trim=opt.trim) as reader:
+        for i, files in enumerate(samples):
             with span("count"):
-                counter = count_sample(files, opt.k, dev, trim=opt.trim, group=group)
+                counter = count_sample(reader, i, dev, group=group)
                 hist = counter.histogram(10000)
                 counter.write_histogram(f"{pre}.s{i}.hist.txt")
             with span("build_graph"):
@@ -714,7 +721,8 @@ def run_pipeline_cli(opt, device="cuda", group=None) -> int:
         return _follow_pipeline(opt, dev, group, [opt.inputs])
 
     with span("count"):
-        counter = count_sample(opt.inputs, opt.k, dev, trim=opt.trim, group=group)
+        with ReadAhead([opt.inputs], opt.k, trim=opt.trim) as reader:
+            counter = count_sample(reader, 0, dev, group=group)
         flushes = counter.flush_log if group is not None else []
         hist = counter.histogram(10000)
         counter.write_histogram(opt.outprefix + ".hist.txt")

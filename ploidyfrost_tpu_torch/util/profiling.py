@@ -9,7 +9,8 @@ and opens a root span named after itself (`Spans.command`). Spans nest
 under it through a contextvars stack: `span(name)` opens a child of the
 innermost open span, wherever the work happens, and is a no-op outside a
 command. A worker thread names its parent (`Spans.span(name, parent)`),
-because a ThreadPoolExecutor does not copy contextvars.
+because a ThreadPoolExecutor does not copy contextvars: `coverage`
+(pipeline.py) and each file's `inflate` (io/fastx.ReadAhead) do so.
 
 `Options.stage_seconds` is a view of the record (`Spans.stage_seconds`):
 the seconds of each span name summed over its spans, except `count`,
@@ -36,6 +37,11 @@ nothing touches torch.profiler or record_function.
 Counts (`add_count`, onto the innermost open span), for the rates the
 stage seconds cannot give:
   h2d_bytes      on `count`: code batches handed to the counter's device
+  read_files     on `count`: the files inflating at once, at most, until
+                 the sample's batches were taken (io/fastx.ReadAhead)
+  batches        on `count`: the reader's batches
+  batches_ready  on `count`: the batches already queued when asked for;
+                 over `batches`, the reader's hit share
   d2h_bytes      on `table_d2h` (`finalize` on a group's rank 0): the
                  count table brought to the host
   seeds          on `search`: superbubble seeds searched
@@ -86,11 +92,12 @@ class Span:
         opened = _OPEN.get()
         if self.parent is None:
             self.parent = next((s for s in reversed(opened) if s.record is rec), None)
-        self.index = len(rec.spans)
         # the Thread object's copy: get_native_id() is a system call, 5.7 us
         # on an H100 host against 0.2 us for this
         self.thread = threading.current_thread().native_id
-        rec.spans.append(self)
+        with rec.lock:  # spans open on several threads at once
+            self.index = len(rec.spans)
+            rec.spans.append(self)
         self._token = _OPEN.set(opened + (self,))
         self.start_ns = time.time_ns()
         if rec.traced:
@@ -118,6 +125,7 @@ class Spans:
 
     def __init__(self):
         self.spans: list[Span] = []
+        self.lock = threading.Lock()
         self.traced = False  # inside a PLOIDYFROST_TRACE session
 
     def span(self, name: str, parent: Span | None = None) -> Span:
@@ -190,6 +198,12 @@ def span(name: str):
     if not opened:
         return _NO_SPAN
     return Span(opened[-1].record, name, opened[-1])
+
+
+def current() -> Span | None:
+    """The innermost open span in this context, of any record, or None."""
+    opened = _OPEN.get()
+    return opened[-1] if opened else None
 
 
 def add_count(key: str, n: int) -> None:

@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 
 from test_golden_colored import FILES, GOLD, make_sample_reads
-from test_torch_helpers import few_torch_threads  # noqa: F401  (autouse fixture)
+from test_torch_helpers import ahead_stages, few_torch_threads  # noqa: F401  (autouse fixture)
 
 CUTOFFS = [(10, 39), (10, 41), (10, 37)]
 
@@ -313,7 +313,7 @@ def test_multi_model_cutoffs_and_stages(multi_run):
         "load_graph", "superbubbles", "sites", "model",
         "table_d2h", "link", "assemble", "write_graph", "load_table", "search", "replay",
         "coverage", "coverage_wait", "align", "window_coverage", "write_tables", "unstaged",
-    }
+    } | ahead_stages()
     for ext in (".gfa", ".colors.npz", ".s0.kmers.npz", ".s2.hist.txt"):
         a, b = os.path.join(d, "gold" + ext), os.path.join(d, "jx" + ext)
         if ext.endswith(".npz"):

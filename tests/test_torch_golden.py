@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from test_golden import FILES, GOLD, make_reads
-from test_torch_helpers import few_torch_threads  # noqa: F401  (autouse fixture)
+from test_torch_helpers import ahead_stages, few_torch_threads  # noqa: F401  (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -64,7 +64,7 @@ def test_cutoffs_and_ploidy(port_run):
         "read", "count", "build_graph", "load_graph", "superbubbles", "sites", "model",
         "table_d2h", "link", "assemble", "write_graph", "load_table", "search", "replay",
         "coverage", "coverage_wait", "align", "window_coverage", "write_tables", "unstaged",
-    }
+    } | ahead_stages()
 
 
 def test_run_subcommand_on_pipeline_outputs(port_run, tmp_path):

@@ -18,3 +18,12 @@ def few_torch_threads():
 
 def test_few_torch_threads_applies_to_this_module():
     assert torch.get_num_threads() == 2
+
+
+def ahead_stages() -> set:
+    """The stage keys the read-ahead adds: `inflate`, one span a file on
+    a worker thread, where the native FASTX reader loads (io/fastx.py's
+    ReadAhead); none on the serial Python reader. Call it in a test."""
+    from ploidyfrost_tpu_torch.native import load_library
+
+    return {"inflate"} if load_library() is not None else set()

@@ -9,11 +9,11 @@ import torch
 
 from ploidyfrost_tpu_torch import cli
 from ploidyfrost_tpu_torch.util import profiling
-from test_torch_helpers import few_torch_threads  # noqa: F401  (autouse fixture)
+from test_torch_helpers import ahead_stages, few_torch_threads  # noqa: F401  (autouse fixture)
 
 MS = 1_000_000  # ns
-# the spans the single-sample path opens (read spans aside), in order,
-# with their parents
+# the spans the single-sample path opens on its main thread (read spans
+# aside), in order, with their parents
 PIPELINE_TREE = [
     ("pipeline", None), ("count", "pipeline"), ("build_graph", "pipeline"),
     ("table_d2h", "build_graph"), ("link", "build_graph"), ("assemble", "build_graph"),
@@ -101,7 +101,7 @@ def commands(tmp_path_factory):
 
 def _tree(opt):
     return [(s.name, s.parent.name if s.parent else None)
-            for s in opt.spans.spans if s.name != "read"]
+            for s in opt.spans.spans if s.name not in ("read", "inflate")]
 
 
 @pytest.mark.parametrize("command", ["pipeline", "pipeline-multi"])
@@ -113,6 +113,25 @@ def test_span_tree(commands, command):
     # a read span a batch wait: at least one batch, then the reader's end
     for c in (s for s in opt.spans.spans if s.name == "count"):
         assert sum(1 for s in reads if s.parent is c) >= 2
+
+
+@pytest.mark.parametrize("command", ["pipeline", "pipeline-multi"])
+def test_inflate_spans_on_worker_threads(commands, command):
+    """One `inflate` span a file where the native reader loads (the
+    test reads one file a sample), each on a thread of its own, none the
+    root's: under `count` in `pipeline`, under the root in
+    `pipeline-multi`, whose reader runs ahead across samples."""
+    spans = commands[command].spans.spans
+    root = spans[0]
+    inflate = [s for s in spans if s.name == "inflate"]
+    if not ahead_stages():
+        assert inflate == []
+        return
+    assert len(inflate) == (1 if command == "pipeline" else 3)
+    assert len({s.thread for s in inflate}) == len(inflate)
+    assert all(s.thread != root.thread for s in inflate)
+    assert all(s.parent.name == ("count" if command == "pipeline" else command)
+               for s in inflate)
 
 
 @pytest.mark.parametrize("command", ["pipeline", "pipeline-multi"])
@@ -164,7 +183,7 @@ def test_coverage_runs_on_a_worker_thread_under_the_root(commands, command):
     root = spans[0]
     (cov,) = [s for s in spans if s.name == "coverage"]
     assert cov.parent is root and cov.thread != root.thread
-    assert all(s.thread == root.thread for s in spans if s is not cov)
+    assert all(s.thread == root.thread for s in spans if s is not cov and s.name != "inflate")
     assert commands[command].stage_seconds["coverage"] == cov.seconds
 
 
@@ -174,6 +193,10 @@ def test_counts_sit_on_their_spans(commands):
     attrs = {s.name: s.attrs for s in spans if s.attrs}
     assert set(attrs) == {"count", "table_d2h", "search", "align", "window_coverage", "model"}
     assert attrs["count"]["h2d_bytes"] > 0
+    # the reader's counts: one file, so one inflating at once at most
+    reader = {key: attrs["count"][key] for key in ("read_files", "batches", "batches_ready")}
+    assert reader["read_files"] == 1 and reader["batches"] > 0
+    assert 0 <= reader["batches_ready"] <= reader["batches"]
     assert attrs["table_d2h"]["d2h_bytes"] % 16 == 0 and attrs["table_d2h"]["d2h_bytes"] > 0
     assert attrs["search"]["seeds"] > 0
     assert attrs["align"]["nw_pairs"] >= 0 and attrs["window_coverage"]["windows"] >= 0
@@ -284,6 +307,35 @@ def test_device_intervals_leave_out_the_spans_own_ranges():
     prof = types.SimpleNamespace(profiler=types.SimpleNamespace(
         kineto_results=types.SimpleNamespace(events=lambda: events)))
     assert profiling.device_intervals(prof) == [(0, 10), (20, 30)]
+
+
+def test_span_indices_hold_across_threads():
+    """Spans opened on many threads at once, the interpreter switching
+    threads often: each span's index is its place in the record."""
+    import sys
+    import threading
+
+    for _ in range(3):
+        rec = profiling.Spans()
+        with rec.span("root") as root:
+            def opener():
+                for _ in range(2000):
+                    with rec.span("w", parent=root):
+                        pass
+
+            threads = [threading.Thread(target=opener) for _ in range(16)]
+            before = sys.getswitchinterval()
+            sys.setswitchinterval(1e-6)
+            try:
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(60)
+            finally:
+                sys.setswitchinterval(before)
+        assert not any(t.is_alive() for t in threads)
+        assert len(rec.spans) == 1 + 16 * 2000
+        assert [s.index for s in rec.spans] == list(range(len(rec.spans)))
 
 
 def test_span_outside_a_command_is_free():
@@ -410,6 +462,6 @@ def test_pipeline_phases_are_traced(tmp_path, monkeypatch):
     with open(tmp_path / "trace" / "p.pipeline.spans.json") as f:
         rows = json.load(f)["spans"]
     assert [(r["name"], None if r["parent"] is None else rows[r["parent"]]["name"])
-            for r in rows if r["name"] != "read"] == PIPELINE_TREE
+            for r in rows if r["name"] not in ("read", "inflate")] == PIPELINE_TREE
     with open("p_model_result.txt") as f:
         assert f.read().rstrip().endswith("estimated ploidy level is : 2")
