@@ -51,8 +51,8 @@ def main(argv=None) -> int:
     traffic = spec.traffic(cell["traffic"])
     import torch
 
-    if not torch.cuda.is_available():
-        print("error: no CUDA device", file=sys.stderr)
+    if not torch.cuda.is_available() or torch.cuda.device_count() < int(cell["chips"]):
+        print(f"error: the cell asks for {cell['chips']} CUDA device(s)", file=sys.stderr)
         return 2
     run.log(f"card: {run.card_line()}")
     here = os.getcwd()
@@ -60,8 +60,8 @@ def main(argv=None) -> int:
     for seed in args.seeds:
         workdir = tempfile.mkdtemp(prefix="pfcontrol_", dir=base)
         try:
-            r = run.run_cell(cell, cfg, traffic, seed, 0.0, False, "cuda", time.time(),
-                             spec.limits(), bench, workdir)
+            r = run.runner(cell)(cell, cfg, traffic, seed, 0.0, False, "cuda", time.time(),
+                                 spec.limits(), bench, workdir)
             gap, secs, n = control_gap(workdir)
         finally:
             os.chdir(here)

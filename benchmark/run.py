@@ -15,6 +15,10 @@ With `--trace 1` one more call, right after the warm-up, runs under
 torch.profiler (device activity only) and the per-layer metrics are
 reported instead of the end-to-end ones.
 
+A cell on several cards runs the port's several-card path instead
+(benchmark/ranks.py): one rank a card, started in set-up, every call
+on all of them.
+
 After the window the plain reference checks the last call's outputs
 (benchmark/check.py). The last line of standard output is the result:
 correct, attempted, failed, metrics, device, breakdown (traced runs)
@@ -58,8 +62,12 @@ def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
+def top_level_modules() -> set[str]:
+    return {m.split(".")[0] for m in list(sys.modules)}
+
+
 def forbidden_modules() -> list[str]:
-    return sorted({m.split(".")[0] for m in list(sys.modules)} & set(FORBIDDEN))
+    return sorted(top_level_modules() & set(FORBIDDEN))
 
 
 def proc_field(path: str, key: str) -> int | None:
@@ -90,16 +98,18 @@ def expand(step: dict, cfg: dict, out: str, samples: list[list[str]]) -> tuple[s
 class Program:
     """The port under test: its command functions, counters and the
     stage seconds of each call (the `stage_seconds` of the Options each
-    command builds)."""
+    command builds). On a rank of a several-card cell (benchmark/ranks.py)
+    `group` is the rank's Group, handed to each command as the port's
+    cli._rank_main hands it."""
 
-    def __init__(self, device: str):
+    def __init__(self, device: str, group=None):
         from ploidyfrost_tpu_torch import cli
         from ploidyfrost_tpu_torch.align import batch_nw
         from ploidyfrost_tpu_torch.bubble import batched
         from ploidyfrost_tpu_torch.kmer import extract
         from ploidyfrost_tpu_torch.model import gmm
 
-        self.cli, self.device = cli, device
+        self.cli, self.device, self.group = cli, device, group
         self.modules = {"K1": (extract, "LAUNCHES"), "search": (batched, "SEARCH_LAUNCHES"),
                         "EM": (gmm, "EM_LAUNCHES"), "NW": (batch_nw, "NW_LAUNCHES")}
         base = cli.Options
@@ -125,7 +135,8 @@ class Program:
             with open(logfile, "w") as f, contextlib.redirect_stdout(f):
                 for cmd, argv in steps:
                     try:
-                        rc = getattr(self.cli, COMMANDS[cmd])(list(argv), self.device) or 0
+                        rc = getattr(self.cli, COMMANDS[cmd])(list(argv), self.device,
+                                                              group=self.group) or 0
                     except (Exception, SystemExit):  # a failed call, counted as such
                         traceback.print_exc(file=f)
                         print(traceback.format_exc(limit=3), file=sys.stderr)
@@ -312,7 +323,8 @@ def finish(cell, cfg, seed, workdir, limits, bench, device, d: dict, info: dict,
     result = {"correct": bool(correct), "attempted": calls, "failed": failed,
               "metrics": metrics, "device": device_info}
     if prof is not None:
-        device_info["busy_s"] = prof["busy_s"]
+        # several cards: the mean over their profiles (benchmark/ranks.py)
+        device_info["busy_s"] = d.get("busy_mean_s", prof["busy_s"])
         device_info["window_s"] = prof["wall_s"]
         result["breakdown"] = prof["breakdown"]
     # every compared number beside its limit, last in the line
@@ -349,9 +361,6 @@ def main(argv=None) -> int:
     for m in spec.metrics_of(cell["name"], "per_layer", bench):
         spec.metric_reader(m["name"])  # an unknown reader fails before any work
 
-    if int(cell["chips"]) != 1:
-        log(f"error: {cell['name']} asks for {cell['chips']} cards; this harness runs one")
-        return 2
     import torch
 
     if not torch.cuda.is_available() or torch.cuda.device_count() < int(cell["chips"]):
@@ -363,11 +372,28 @@ def main(argv=None) -> int:
     workdir = tempfile.mkdtemp(prefix="pfbench_", dir=base)
     here = os.getcwd()
     try:
-        r = run_cell(cell, cfg, traffic, args.seed, args.seconds, bool(args.trace), "cuda",
-                     t_start, limits, bench, workdir)
+        r = runner(cell)(cell, cfg, traffic, args.seed, args.seconds, bool(args.trace), "cuda",
+                         t_start, limits, bench, workdir)
     finally:
         os.chdir(here)
         shutil.rmtree(workdir, ignore_errors=True)
+    return report(r)
+
+
+def runner(cell: dict):
+    """`run_cell` for a cell on one card; for one on several, the rank
+    path of benchmark/ranks.py (the same arguments and result)."""
+    if int(cell["chips"]) == 1:
+        return run_cell
+    from . import ranks
+
+    return ranks.run_cell
+
+
+def report(r: dict) -> int:
+    """The run's account on standard error and its result as the last
+    line of standard output; 3, and no result, where this process or a
+    rank loaded a forbidden module."""
     info, result = r["info"], r["result"]
     wchar = proc_field("/proc/self/io", "wchar:")
     to_disk = proc_field("/proc/self/io", "write_bytes:")
@@ -377,6 +403,8 @@ def main(argv=None) -> int:
         f"{to_disk} to storage")
     log(f"window: {info['calls']} calls in {info['window_s']:.3f} s; launches {info['launches']}")
     log("stage seconds summed over the window: " + json.dumps(info["stage_sums"]))
+    for line in info.get("rank_log", []):
+        log(line)
     log(f"host memory peak of this process (VmHWM, set-up included): {info['host_peak']} KiB")
     if r["prof"] is not None:
         log("profiled call: " + json.dumps({k: v for k, v in r["prof"].items()
@@ -385,9 +413,12 @@ def main(argv=None) -> int:
         log("metrics with nothing to read: " + ", ".join(info["missing"]))
     log(f"reference {info['reference_s']:.3f} s; counts beside the check: "
         + json.dumps(info["check_counts"]))
-    bad = forbidden_modules()
-    if bad:
-        log("error: loaded in this process: " + ", ".join(bad))
+    bad = {"this process": forbidden_modules()}
+    for rank, names in info.get("rank_modules", {}).items():
+        bad[f"rank {rank}"] = sorted(set(names) & set(FORBIDDEN))
+    if any(bad.values()):
+        log("error: loaded in " + "; ".join(f"{where}: {', '.join(names)}"
+                                            for where, names in bad.items() if names))
         return 3
     for name, row in result["checks"].items():
         log(f"check {name} {row['value']} limit {row['limit']}")

@@ -71,6 +71,8 @@ def test_benchmark_json_keeps_the_contract():
         assert set(m) == {"name", "unit", "better", "source", "layer", "moves", "workloads"}
         assert m["moves"] in {e["name"] for e in b["end_to_end"]}
         assert set(m["workloads"]) <= cells and 1 <= len(m["layer"]) <= 200
+    four = sum(w["chips"] == 4 for w in b["workloads"])
+    assert four <= max(1, len(b["workloads"]) // 4)
     for w in cells:  # every cell reports set-up, another end-to-end and a per-layer metric
         assert len(spec.metrics_of(w, "end_to_end", b)) >= 2
         assert spec.metrics_of(w, "per_layer", b)
