@@ -5,13 +5,13 @@ The reference makes the reads again from the seed and recomputes, on
 its own, each sample's count table and histogram, the cutoffs, the
 compacted graph (and its colors on several samples), the superbubbles
 (the upstream's search, run on its own graph in the program's unitig
-numbering), the strict bubbles' coverage rows, and the GMM fits. Each
-compared number is a count of disagreements (limit 0) except
-`model_gap`, the largest relative gap between the model_result numbers
-of the program and of the reference's float64 fits. The GMM reference
-reads the program's allele frequency file: it follows the program from
-there, and the strict rows of that file are recomputed apart
-(`strict_rows_off`), both the rows written and the rows due.
+numbering), every block and row of the site tables (reference/sites.py),
+and the GMM fits. Each compared number is a count of disagreements
+(limit 0) except `model_gap`, the largest relative gap between the
+model_result numbers of the program and of the reference's float64
+fits, and `rows_compensated` (sites.py). The GMM reference reads the
+program's allele frequency file: it follows the program from there, and
+every line of that file is recomputed apart, with the rows it belongs to.
 """
 
 from __future__ import annotations
@@ -106,9 +106,9 @@ def _unitig_ids(path: str) -> list[str] | None:
 
 def _superbubbles(outdir: str, out: str, k: int, useqs: list[str], tables, cutoffs, filtered,
                   device) -> dict:
-    """{off, search, admitted, uniform}: the reference's search over its
-    own graph, named as the program names its unitigs, against the
-    program's `_super_bubble.txt`."""
+    """{off, search, facts, listed}: the reference's search over its own
+    graph, named as the program names its unitigs, against the program's
+    `_super_bubble.txt`, and each unitig's counts (sites.Facts)."""
     n = len(useqs)
     q, owner = graph.sequence_keys(useqs, k, device)
     nkm = np.bincount(owner, minlength=n)
@@ -118,31 +118,30 @@ def _superbubbles(outdir: str, out: str, k: int, useqs: list[str], tables, cutof
         return how.reduceat(values, starts) if n else np.zeros(0, dtype=values.dtype)
 
     colored = len(tables) > 1
-    admitted, carried, inside_all = [], [], []
+    mean, least, inside, carried = [], [], [], []
     for (tk, tc), (lo, up), fk in zip(tables, cutoffs, filtered):
         ti, tf = graph.lookup(tk, q)
         c = np.where(tf, tc.cpu().numpy()[ti], 0)
-        if not colored:
-            least = per_unitig(c, np.minimum)
-            admitted.append((least > lo) & (least < up))
-            continue
-        _, inf = graph.lookup(fk, q)
-        carried.append(per_unitig(inf.astype(np.int64), np.add))  # k-mers carrying the color
-        inside_all.append(per_unitig((tf & (c > lo) & (c < up)).astype(np.int8), np.minimum) > 0)
-    colors = uniform = None
+        mean.append(per_unitig(c, np.add) / np.maximum(nkm, 1))
+        least.append(per_unitig(c, np.minimum))
+        inside.append(per_unitig((tf & (c > lo) & (c < up)).astype(np.int8), np.minimum) > 0)
+        if colored:
+            _, inf = graph.lookup(fk, q)
+            carried.append(per_unitig(inf.astype(np.int64), np.add))  # k-mers carrying the color
+    mean, least, inside = np.stack(mean, 1), np.stack(least, 1), np.stack(inside, 1)
+    colors = full = uniform = None
     if colored:
         bits = np.stack(carried, 1)
         full = bits == nkm[:, None]
-        inside = np.stack(inside_all, 1)
         size = bits.sum(1)
         uniform = (size == full.sum(1) * nkm) & ~(full & ~inside).any(1)
-        admitted = list((full & inside).T)
         colors = (full.tolist(), size.tolist(), nkm.tolist())
+    facts = sites.Facts(mean, least, inside, full, uniform, cutoffs)
     search = bubbles.Search(bubbles.adjacency(useqs, k), COMPLEX_SIZE, colors)
     search.run()
     program = bubbles.read_listing(os.path.join(outdir, out + "_super_bubble.txt"))
     return {"off": bubbles.listing_off(program, search.listing()), "search": search,
-            "admitted": admitted, "uniform": uniform, "listed": len(program)}
+            "facts": facts, "listed": len(program)}
 
 
 def compare(cfg: dict, seed: int, workdir: str, out: str, log: str, device) -> dict:
@@ -187,14 +186,12 @@ def compare(cfg: dict, seed: int, workdir: str, out: str, log: str, device) -> d
             and os.path.exists(os.path.join(outdir, out + "_super_bubble.txt"))):
         bub = _superbubbles(outdir, out, k, useqs, tables, ref_cut, filtered, device)
     res["bubbles_off"] = bub["off"] if bub else 1
-    st = sites.check_strict(outdir, out, k, gkeys, labels, tables, ref_cut)
-    due = (sites.missing_strict(outdir, out, bub["search"], useqs, bub["admitted"],
-                                bub["uniform"]) if bub else {"due": 0, "missing": 1})
-    res["strict_rows_off"] = st["off"] + due["missing"]
+    if bub:
+        res.update(sites.check(outdir, out, k, useqs, bub["search"], bub["facts"], tables,
+                               filtered, device))
+    else:  # no graph to read the sites against
+        res.update(dict.fromkeys(sites.NUMBERS, 1))
     res["_superbubbles"] = bub["listed"] if bub else 0
-    res["_strict_rows"] = st["checked"]
-    res["_strict_rows_due"] = due["due"]
-    res["_other_rows"] = st["other"]
     del bub
     del tables, filtered, union, gkeys
     fre = os.path.join(outdir, out + "_allele_frequency.txt")
@@ -209,6 +206,7 @@ def compare(cfg: dict, seed: int, workdir: str, out: str, log: str, device) -> d
         res["model_gap"], ref_ploidy = FAILED, None
     p = program_ploidy(log)
     res["ploidy_off"] = abs(p - ref_ploidy) if p is not None and ref_ploidy is not None else 1
+    res["_ploidy"] = p
     return res
 
 

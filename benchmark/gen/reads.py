@@ -19,8 +19,31 @@ make_sample_reads, vectorised, made paired and given errors):
   quarter of the bubbles of the others at 5 Mbp;
 * each sample: haplotype 0 is the genome, every other haplotype carries
   substitutions at the sample's heterozygosity (a site list of its own);
+* optional keys, for a polyploid whose haplotypes share their variants
+  (the recipe of the repository's indel_dense golden set); a
+  configuration without them draws nothing more and makes the same
+  bytes as before they existed:
+  - `shared_site_rate`, `shared_site_carry`: one list of sites a
+    sample, drawn once over the genome at the rate; each derived
+    haplotype carries each site with the carry probability, with an
+    alternative base drawn for that haplotype (dosage 1 to ploidy - 1,
+    and three or more alleles at some sites). A het SNP at a shared
+    site gives way to it;
+  - `indel_rate`, `indel_max_len`: scattered indels in each derived
+    haplotype at the rate a base, each 1 to `indel_max_len` bases, half
+    insertions of random bases and half deletions;
+  - `indel_runs_per_mbp`: clustered runs a Mbp in each derived
+    haplotype, each 3 to 5 single-base indels within 60 bases.
+  Indels lie in genome coordinates, each at least one untouched base
+  from the one before (an event that would touch another is dropped),
+  and are applied after the substitutions. Haplotypes then differ in
+  length. Uniqueness holds in every haplotype: windows of one value
+  within k - 1 bases of one genome position, in two haplotypes, are one
+  place (an indel in a run of repeated bases moves a window by a few
+  bases), and are no repeat;
 * each haplotype: `pairs_per_haplotype` fragments, lengths normal
-  (mean, sd) clipped to [read_len, 2 * mean], uniform start, either
+  (mean, sd) clipped to [read_len, 2 * mean], uniform start over the
+  haplotype's own length, either
   strand; mate 1 is the fragment's first read_len bases, mate 2 the
   reverse complement of its last read_len bases;
 * each mate file: substitutions at `error_rate` a base, drawn apart for
@@ -40,6 +63,9 @@ import numpy as np
 
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 CHUNK = 131072  # pairs a block: bounds the host memory of a writer
+EDIT_KEYS = ("shared_site_rate", "indel_rate", "indel_runs_per_mbp")
+RUN_INDELS = (3, 5)  # single-base indels in a clustered run, fewest and most
+RUN_SPAN = 60  # bases a clustered run spreads over
 
 
 def _rng(seed: int, *path: int) -> np.random.Generator:
@@ -68,6 +94,82 @@ def _apply(g: np.ndarray, variant: tuple[np.ndarray, np.ndarray]) -> np.ndarray:
     h = g.copy()
     h[snp] = (h[snp] + shift) % 4
     return h
+
+
+def edited(cfg: dict) -> bool:
+    """Whether the configuration asks for shared sites or indels."""
+    return any(cfg.get(key) for key in EDIT_KEYS)
+
+
+def _substitutions(cfg: dict, seed: int, sample: int) -> list[tuple[np.ndarray, np.ndarray]]:
+    """_variants with the sample's shared sites added (edited configurations)."""
+    het = _variants(cfg, seed, sample)
+    if not cfg.get("shared_site_rate"):
+        return het
+    rng = _rng(seed, 4, sample)
+    sites = np.flatnonzero(rng.random(cfg["genome_bp"]) < cfg["shared_site_rate"])
+    out = []
+    for snp, shift in het:
+        carry = sites[rng.random(len(sites)) < cfg["shared_site_carry"]]
+        alt = rng.integers(1, 4, len(carry), dtype=np.uint8)
+        keep = ~np.isin(snp, carry)
+        pos = np.concatenate([snp[keep], carry])
+        order = np.argsort(pos, kind="stable")
+        out.append((pos[order], np.concatenate([shift[keep], alt])[order]))
+    return out
+
+
+def _indels(cfg: dict, seed: int, sample: int, hap: int):
+    """(positions, lengths, insertion flags, inserted bases) of one derived
+    haplotype, in genome coordinates, sorted, none touching another."""
+    rng = _rng(seed, 5, sample, hap)
+    G = cfg["genome_bp"]
+    pos = np.flatnonzero(rng.random(G) < cfg.get("indel_rate", 0.0))
+    length = rng.integers(1, int(cfg.get("indel_max_len", 1)) + 1, len(pos))
+    runs = int(round(cfg.get("indel_runs_per_mbp", 0) * G / 1e6))
+    start = rng.integers(1, G - RUN_SPAN - int(cfg.get("indel_max_len", 1)), runs)
+    per = rng.integers(RUN_INDELS[0], RUN_INDELS[1] + 1, runs)
+    in_run = np.repeat(start, per) + rng.integers(0, RUN_SPAN, int(per.sum()))
+    pos = np.concatenate([pos, in_run])
+    length = np.concatenate([length, np.ones(len(in_run), dtype=length.dtype)])
+    insertion = rng.random(len(pos)) < 0.5
+    order = np.argsort(pos, kind="stable")
+    pos, length, insertion = pos[order], length[order], insertion[order]
+    keep = np.zeros(len(pos), dtype=bool)
+    free = 1  # the first genome position an event may touch
+    for i, (p, n, ins) in enumerate(zip(pos.tolist(), length.tolist(), insertion.tolist())):
+        end = p + 1 if ins else p + n  # past the last genome base the event touches
+        if p >= free and end < G:
+            keep[i] = True
+            free = end + 1
+    pos, length, insertion = pos[keep], length[keep], insertion[keep]
+    bases = rng.integers(0, 4, int(length[insertion].sum()), dtype=np.uint8)
+    return pos, length, insertion, bases
+
+
+def _edit(h: np.ndarray, events) -> tuple[np.ndarray, np.ndarray]:
+    """(the haplotype with its indels, the genome position of each base;
+    an inserted base takes that of the base it was inserted before)."""
+    pos, length, insertion, bases = events
+    keep = np.ones(len(h), dtype=bool)
+    dl = length[~insertion]
+    if len(dl):
+        first = np.repeat(pos[~insertion], dl)
+        keep[first + np.arange(len(first)) - np.repeat(np.cumsum(dl) - dl, dl)] = False
+    at = np.repeat(pos[insertion], length[insertion])
+    kept = np.insert(keep, at, True)
+    return (np.insert(h, at, bases)[kept],
+            np.insert(np.arange(len(h)), at, at)[kept])
+
+
+def _derived(cfg: dict, seed: int, sample: int) -> list[tuple]:
+    """(substitutions, indels) of each haplotype after the first."""
+    subs = _substitutions(cfg, seed, sample)
+    no_indel = (np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0, bool),
+                np.zeros(0, np.uint8))
+    indels = cfg.get("indel_rate") or cfg.get("indel_runs_per_mbp")
+    return [(v, _indels(cfg, seed, sample, h + 1) if indels else no_indel)
+            for h, v in enumerate(subs)]
 
 
 def _windows(h: np.ndarray, m: int) -> tuple[np.ndarray, np.ndarray]:
@@ -125,6 +227,48 @@ def _unique_windows(g: np.ndarray, variants: list, m: int) -> np.ndarray:
     raise RuntimeError("the genome keeps repeated windows")
 
 
+def _unique_windows_edited(g: np.ndarray, derived: list[tuple], m: int) -> np.ndarray:
+    """_unique_windows for haplotypes with shared sites and indels: change
+    bases of `g` until no m-mer occurs twice in one haplotype, or in two
+    at genome positions more than m - 1 apart, or is its own reverse
+    complement. A haplotype's window equal to the genome's at the same
+    position is the genome's. A bad window's middle base is changed; every
+    fourth round the base changed moves one on, since a shared site of four
+    alleles there would leave one haplotype's window bad whatever the
+    genome's base."""
+    g = g.copy()
+    for rnd in range(64):
+        off = m // 2 + (rnd // 4) % (m - m // 2)  # the base changed, from the window's start
+        vals, pal = _windows(g, m)
+        n = len(vals)
+        value, at, hap, mid = [vals], [np.arange(n)], [np.zeros(n, np.int64)], [np.arange(n) + off]
+        bad = [np.flatnonzero(pal) + off]
+        for t, (sub, events) in enumerate(derived, 1):
+            h, coord = _edit(_apply(g, sub), events)
+            hv, hpal = _windows(h, m)
+            c = coord[:len(hv)]
+            new = np.flatnonzero((c >= n) | (hv != vals[np.minimum(c, n - 1)]))
+            value.append(hv[new])
+            at.append(c[new])
+            hap.append(np.full(len(new), t, dtype=np.int64))
+            mid.append(coord[new + off])
+            bad.append(coord[np.flatnonzero(hpal) + off])
+        value, at, hap, mid = (np.concatenate(x) for x in (value, at, hap, mid))
+        o = np.lexsort((at, value))
+        v, c = value[o], at[o]
+        starts = np.r_[True, v[1:] != v[:-1]]
+        first = c[np.maximum.accumulate(np.where(starts, np.arange(len(v)), 0))]
+        bad.append(mid[o][~starts & (c - first > m - 1)])
+        o = np.lexsort((hap, value))  # twice in one haplotype
+        twice = np.r_[False, (value[o][1:] == value[o][:-1]) & (hap[o][1:] == hap[o][:-1])]
+        bad.append(mid[o][twice])
+        bad = np.unique(np.concatenate(bad))
+        if len(bad) == 0:
+            return g
+        g[bad] = (g[bad] + 1) % 4
+    raise RuntimeError("the genome keeps repeated windows")
+
+
 _GENOME_CACHE: dict = {}
 
 
@@ -132,15 +276,19 @@ def genome(cfg: dict, seed: int) -> np.ndarray:
     key = (json.dumps(cfg, sort_keys=True), int(seed))
     if key not in _GENOME_CACHE:
         g = _rng(seed, 0).integers(0, 4, cfg["genome_bp"], dtype=np.uint8)
-        variants = [v for s in range(len(cfg["samples"])) for v in _variants(cfg, seed, s)]
         _GENOME_CACHE.clear()
-        _GENOME_CACHE[key] = _unique_windows(g, variants, cfg["k"] - 1)
+        if edited(cfg):
+            derived = [d for s in range(len(cfg["samples"])) for d in _derived(cfg, seed, s)]
+            _GENOME_CACHE[key] = _unique_windows_edited(g, derived, cfg["k"] - 1)
+        else:
+            variants = [v for s in range(len(cfg["samples"])) for v in _variants(cfg, seed, s)]
+            _GENOME_CACHE[key] = _unique_windows(g, variants, cfg["k"] - 1)
     return _GENOME_CACHE[key]
 
 
 def haplotypes(cfg: dict, seed: int, sample: int) -> list[np.ndarray]:
     g = genome(cfg, seed)
-    return [g] + [_apply(g, v) for v in _variants(cfg, seed, sample)]
+    return [g] + [_edit(_apply(g, sub), events)[0] for sub, events in _derived(cfg, seed, sample)]
 
 
 def _fragments(cfg: dict, seed: int, sample: int, hap: int, n: int, G: int):
@@ -157,12 +305,11 @@ def mate_codes(cfg: dict, seed: int, sample: int, mate: int):
     """Yield [n, read_len] uint8 code blocks (0..3 = ACGT) of one mate
     file of one sample, in file order, errors included."""
     L = cfg["read_len"]
-    G = cfg["genome_bp"]
     n = pairs_per_haplotype(cfg, sample)
     erng = _rng(seed, 3, sample, mate)
     cols = np.arange(L, dtype=np.int64)
     for hap, h in enumerate(haplotypes(cfg, seed, sample)):
-        start, flen, reverse = _fragments(cfg, seed, sample, hap, n, G)
+        start, flen, reverse = _fragments(cfg, seed, sample, hap, n, len(h))
         for lo in range(0, n, CHUNK):
             s, f, r = start[lo:lo + CHUNK], flen[lo:lo + CHUNK], reverse[lo:lo + CHUNK]
             # forward strand: mate 1 at the fragment's start, mate 2 (rc)
@@ -254,3 +401,9 @@ def sanity(cfg: dict) -> None:
         raise ValueError("rates must lie in [0, 1)")
     if math.isnan(float(cfg["fragment_sd"])):
         raise ValueError("fragment_sd is not a number")
+    if not (0 <= cfg.get("shared_site_rate", 0) < 1 and 0 <= cfg.get("shared_site_carry", 0) <= 1
+            and 0 <= cfg.get("indel_rate", 0) < 1 and cfg.get("indel_runs_per_mbp", 0) >= 0
+            and cfg.get("indel_max_len", 1) >= 1):
+        raise ValueError("shared-site and indel rates must lie in [0, 1), lengths at least 1")
+    if cfg.get("shared_site_rate") and "shared_site_carry" not in cfg:
+        raise ValueError("shared_site_rate needs shared_site_carry")
