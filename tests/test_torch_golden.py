@@ -96,6 +96,40 @@ def test_run_subcommand_on_pipeline_outputs(port_run, tmp_path):
         os.chdir(cwd)
 
 
+def test_run_shuts_the_coverage_pool_when_the_search_raises(port_run, tmp_path, monkeypatch):
+    """`run` probes the unitig coverage on a pool beside the superbubble
+    search; when the search raises, the pool is shut down before the
+    error leaves `run`."""
+    import concurrent.futures
+
+    from ploidyfrost_tpu_torch import cli
+    from ploidyfrost_tpu_torch.bubble import batched
+
+    pools = []
+
+    class Pool(concurrent.futures.ThreadPoolExecutor):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.shut = False
+            pools.append(self)
+
+        def shutdown(self, *args, **kw):
+            self.shut = True
+            super().shutdown(*args, **kw)
+
+    def search_fails(*args, **kw):
+        raise RuntimeError("search failed")
+
+    monkeypatch.setattr(concurrent.futures, "ThreadPoolExecutor", Pool)
+    monkeypatch.setattr(batched, "find_superbubbles_device", search_fails)
+    d, _ = port_run
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="search failed"):
+        cli._main(["-g", os.path.join(d, "gold.gfa"), "-d", os.path.join(d, "gold.kmers.npz"),
+                   "-o", "fails", "-l", "10", "-u", "37"], "cpu", False)
+    assert pools and all(p.shut for p in pools)
+
+
 def test_port_imports_no_jax():
     """Every module of the package imports, in a fresh interpreter,
     without loading jax or the JAX package (and so without a GPU

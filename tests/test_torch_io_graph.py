@@ -434,15 +434,17 @@ def _plain(x):
 
 @pytest.mark.parametrize("strict", [True, False])
 def test_fast_matches_generic_and_jax(strict):
-    """The fast path's rows equal the generic path's, and the JAX
-    package's fast path on the same jobs."""
+    """The shared site emission gives the same rows with the fast
+    positions as through the generic alignment, and the JAX package's
+    fast path on the same jobs."""
     from ploidyfrost_tpu.sites import emit as jemit
     from ploidyfrost_tpu_torch.align.msa import SeqAlign
-    from ploidyfrost_tpu_torch.sites.emit import (_AlignJob, _emit_fast, _emit_generic,
+    from ploidyfrost_tpu_torch.sites.emit import (OneSample, _AlignJob, _align, _emit,
                                                   _fast_snp_positions)
 
     rng = np.random.default_rng(42 if strict else 43)
     sa = SeqAlign(2.0, -1.0, -3.0)
+    seam = OneSample(np.zeros(0), np.zeros(0), 0, 0)
     n_fast = 0
     for _ in range(300):
         state = rng.bit_generator.state
@@ -457,9 +459,10 @@ def test_fast_matches_generic_and_jax(strict):
             continue
         np.testing.assert_array_equal(fsnp, jf)
         n_fast += 1
+        value = seam.bubble_values([job])[0]
         wf, wg, wj = [], [], []
-        be_f = _emit_fast(job, fsnp, 25, wf)
-        be_g = _emit_generic(job, sa, 25, wg, var_id=job.var_id)
+        be_f = _emit(job, seam, value, _align(job, sa, fsnp, None, False), 25, wf)
+        be_g = _emit(job, seam, value, _align(job, sa, None, None, False), 25, wg)
         be_j = jemit._emit_fast(jjob, jf, 25, wj)
         assert _plain(be_f) == _plain(be_g) == _plain(be_j)
         assert wf == wg == wj
@@ -483,10 +486,10 @@ def test_gate_rejects_unequal_and_dense():
 
 
 def test_gate_requires_default_scoring():
-    """analyze_bubbles enables the fast path only for (2, -1, -3)."""
+    """The sites pass enables the fast path only for (2, -1, -3)."""
     from ploidyfrost_tpu_torch.sites import emit
 
-    assert "(2.0, -1.0, -3.0)" in inspect.getsource(emit.analyze_bubbles)
+    assert "(2.0, -1.0, -3.0)" in inspect.getsource(emit.analyze)
 
 
 def test_gapless_msa_matches_generic_and_jax():

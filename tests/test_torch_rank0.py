@@ -61,7 +61,7 @@ SPIED = [
     ("ploidyfrost_tpu_torch.graph.colors", "color_graph"),
     ("ploidyfrost_tpu_torch.sites.emit", "analyze_bubbles"),
     ("ploidyfrost_tpu_torch.sites.emit_colored", "analyze_bubbles_colored"),
-    ("ploidyfrost_tpu_torch.pipeline", "window_coverage"),
+    ("ploidyfrost_tpu_torch.sites.emit", "window_coverage"),
 ]
 
 
